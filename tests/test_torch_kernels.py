@@ -1,0 +1,164 @@
+"""The port's fused LGSSM sweep (cortex_tpu_torch.ops.kernels) and its build.
+
+On the CPU the wrapper runs the kernel's plain PyTorch version, which is held
+against the JAX Pallas kernel in interpret mode, at the shapes and bars of
+tests/test_pallas_kernels.py (1e-4; 1e-3 off the default parameters), and
+against the scan at 1e-5 where both run on the same float32 recursion.  The
+CUDA kernel itself is held against the plain version by the ``cuda``-marked
+tests of tests/test_torch_cuda.py, which skip without a card.
+"""
+
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from cortex_tpu_torch import _build
+from cortex_tpu_torch.ops import kernels, lgssm_smooth_scan
+
+from cortex_tpu.ops.pallas_kernels import lgssm_smooth_pallas
+
+
+def _walk(seed, shape):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=shape).cumsum(axis=-1).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "shape, params, tol",
+    [
+        ((40, 32), {}, 1e-4),
+        ((21, 24), dict(A=0.9, Q=0.5, H=2.0, R=0.7), 1e-3),
+    ],
+)
+def test_plain_version_matches_pallas_interpret(shape, params, tol):
+    y = _walk(sum(shape), shape)
+    port = kernels.lgssm_smooth_fused_reference(torch.from_numpy(y), **params)
+    ref = lgssm_smooth_pallas(jnp.asarray(y), **params, tile=16)
+    np.testing.assert_allclose(port.mean.numpy(), np.asarray(ref.mean), rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        port.variance.numpy(), np.asarray(ref.variance), rtol=tol, atol=tol
+    )
+
+
+@pytest.mark.parametrize("T", [1, 2, 33])
+def test_plain_version_matches_scan(T):
+    y = torch.from_numpy(_walk(T, (7, T)))
+    a = kernels.lgssm_smooth_fused_reference(y, 0.95, 0.8, 1.2, 0.5)
+    b = lgssm_smooth_scan(y, 0.95, 0.8, 1.2, 0.5)
+    torch.testing.assert_close(a.mean, b.mean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(a.variance, b.variance, rtol=1e-5, atol=1e-5)
+
+
+def test_wrapper_takes_plain_path_on_cpu_without_counting():
+    y = torch.from_numpy(_walk(3, (9, 20)))
+    before = dict(kernels.LAUNCHES)
+    out = kernels.lgssm_smooth_fused(y, A=0.9, Q=0.5)
+    ref = kernels.lgssm_smooth_fused_reference(y, A=0.9, Q=0.5)
+    assert kernels.LAUNCHES == before
+    assert torch.equal(out.mean, ref.mean) and torch.equal(out.variance, ref.variance)
+
+
+@pytest.mark.parametrize(
+    "y, error",
+    [
+        (torch.zeros(4, 5, dtype=torch.float64), TypeError),
+        (torch.zeros(20), ValueError),
+        (torch.zeros(2, 3, 4), ValueError),
+        (torch.zeros(0, 5), ValueError),
+        (torch.zeros(device="meta", size=(4, 5)), ValueError),
+    ],
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(y, error):
+    with pytest.raises(error):
+        kernels.lgssm_smooth_fused(y)
+
+
+def test_wrapper_rejects_zero_transition():
+    with pytest.raises(ValueError, match="A must be non-zero"):
+        kernels.lgssm_smooth_fused(torch.ones(2, 3), A=0.0)
+
+
+@pytest.mark.parametrize(
+    "T, tile", [(1, 64), (100, 64), (443, 64), (444, 32), (867, 32), (868, 0), (3072, 0)]
+)
+def test_smem_tile_fits_hopper_shared_memory(T, tile):
+    assert kernels.smem_tile(T) == tile
+    if tile:
+        assert kernels.smem_bytes(tile, T) <= kernels.SMEM_LIMIT_BYTES
+
+
+def _gain_form_sweep(y, coef, h_over_r):
+    """The CUDA kernel's arithmetic (``sweep`` in csrc/lgssm_smooth.cu), in
+    float32 torch ops, vectorized over replicas."""
+    gf, gb, var = coef
+    n, T = y.shape
+    xf = torch.zeros_like(y)
+    mean = torch.empty_like(y)
+    xi = h_over_r * y[:, 0]
+    for t in range(1, T):
+        xf[:, t] = gf[t] * xi
+        xi = xf[:, t] + h_over_r * y[:, t]
+    xi_b = h_over_r * y[:, T - 1]
+    mean[:, T - 1] = (xi_b + xf[:, T - 1]) * var[T - 1]
+    for t in range(T - 2, -1, -1):
+        msg = gb[t] * xi_b
+        obs = h_over_r * y[:, t]
+        mean[:, t] = (obs + xf[:, t] + msg) * var[t]
+        xi_b = obs + msg
+    return mean, var.expand(n, T)
+
+
+@pytest.mark.parametrize("params", [{}, dict(A=0.9, Q=0.5, H=2.0, R=0.7),
+                                    dict(A=1.3, Q=0.2, H=0.5, R=1.5)])
+@pytest.mark.parametrize("T", [1, 2, 40, 3072])
+def test_kernel_arithmetic_matches_plain_version(params, T):
+    """The kernel's gain form with :func:`sweep_coefficients` against the 1/w
+    recursion of the plain version: one float32 sweep rounded two ways."""
+    p = {"A": 1.0, "Q": 1.0, "H": 1.0, "R": 1.0, **params}
+    y = torch.from_numpy(_walk(T, (5, T)))
+    coef = kernels.sweep_coefficients(p["A"], p["Q"], p["H"], p["R"], T, torch.device("cpu"))
+    assert coef.shape == (3, T) and coef.dtype == torch.float32
+    mean, var = _gain_form_sweep(y, coef, p["H"] / p["R"])
+    ref = kernels.lgssm_smooth_fused_reference(y, **p)
+    torch.testing.assert_close(mean, ref.mean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(var, ref.variance, rtol=1e-5, atol=1e-5)
+
+
+def test_build_command_targets_sm90a_and_only_package_sources():
+    out = Path("lib.so")
+    cmd = _build.nvcc_command("nvcc", out)
+    assert cmd[0] == "nvcc"
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and cmd[cmd.index("-o") + 1] == str(out)
+    csrc = Path(_build.__file__).parent / "csrc"
+    srcs = [Path(a) for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]
+    assert srcs == sorted(csrc.glob("*.cu"))
+    assert srcs and all(p.parent == csrc for p in srcs)
+
+
+def test_library_name_keys_on_sources_and_nvcc_version(tmp_path):
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    first = _build.library_name("release 12.8", [src])
+    assert first == _build.library_name("release 12.8", [src])
+    assert first != _build.library_name("release 12.9", [src])
+    src.write_text("// two\n")
+    assert first != _build.library_name("release 12.8", [src])
+
+
+def test_build_dir_is_git_ignored():
+    repo = Path(__file__).resolve().parents[1]
+    assert _build.BUILD_DIR.parent == repo / "build"
+    assert "build/" in (repo / ".gitignore").read_text().split()
+
+
+def test_missing_nvcc_raises_clearly(monkeypatch, tmp_path):
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
+    with pytest.raises(RuntimeError, match="needs nvcc"):
+        _build.find_nvcc()
