@@ -1,23 +1,35 @@
-"""Drive the PyTorch port's LGSSM smoothing path once on an NVIDIA GPU.
+"""Drive the PyTorch port's LGSSM smoothing and HMM paths once on an NVIDIA GPU.
 
 Run from the root of a checkout, with one CUDA card::
 
     python3 chip_smoke.py
 
-It imports nothing of JAX: its references are a float64 numpy RTS smoother
-and the port's own plain versions.  Phases, each printing JSON lines:
+It imports nothing of JAX: its references are a float64 numpy RTS smoother,
+a float64 numpy log-space forward-backward and the port's own plain
+versions.  Phases, each printing JSON lines:
 
 1. ``device``: the card's name and ``nvidia-smi``'s name and power limit.
 2. ``build``: builds the CUDA kernels from ``cortex_tpu_torch/csrc`` with
    ``nvcc`` (into the git-ignored ``build/``) and prints the seconds.
-3. ``kernel``: the fused sweep against its plain version on the card, at
-   the main path's shapes, at every shared-memory tile, at T=3072 (the
-   device-memory path) and at a tiny edge case.
-4. ``main_path``: ``LGSSM`` at 10,000 replicas x T=100 through every
+3. ``kernel``: the fused LGSSM sweep (K1) against its plain version on the
+   card, at the main path's shapes, at every shared-memory tile, at T=3072
+   (the device-memory path) and at a tiny edge case.
+4. ``hmm_kernel``: the HMM forward-backward kernel, without (K2) and with
+   (K3) the pairwise counts, against their plain versions on the card, on
+   both of its paths (small K, any K), alphas in shared and device memory.
+5. ``main_path``: ``LGSSM`` at 10,000 replicas x T=100 through every
    smoother and ``ops.lgssm_smooth_fused``, against the float64 RTS; filter,
-   log-evidence and NaN gaps against the port's CPU run; the kernel's launch
-   count over this phase.
-5. ``times``: CUDA-event medians per sweep at 10,000 and 100,000 replicas.
+   log-evidence and NaN gaps against the port's CPU run; K1's launch count
+   over this phase.
+6. ``hmm_main_path``: ``HMM`` at 4,096 replicas x T=64, K=4, M=8 (the JAX
+   bench's ``ladder.hmm``): ``smooth`` by scan and by the kernel and
+   ``ops.hmm_forward_backward_fused`` against the float64 forward-backward;
+   pooled Dirichlet VMP by the kernel against the scan; per-replica VMP with
+   missing steps against the CPU; K2's and K3's launch counts over this phase.
+7. ``times``: CUDA-event medians per LGSSM sweep at 10,000 and 100,000
+   replicas.
+8. ``hmm_times``: per-VMP-iteration times of both E-steps, and K2, K3, their
+   plain versions and a matched-traffic probe at 4,096 and 65,536 replicas.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 A failed check raises: the exit code is non-zero and the last line is not
@@ -54,6 +66,30 @@ KERNEL_CASES = [
     ((3, 1), {}, 1e-4),
     ((100_000, 100), {}, 1e-4),
 ]
+
+# The HMM path at the width of the JAX bench's ladder.hmm (bench.py:600-611).
+HMM_R, HMM_T, HMM_K, HMM_M, HMM_ITERS = 4096, 64, 4, 8, 4
+HMM_R_TIMES = (4096, 65_536)
+N_FB = 64  # replicas held against the float64 forward-backward
+# (R, T, K): the main path's shape and a ragged R; each small-K lane group
+# (1, 2, 4 with K=3, 16, 32); the general path (K=64, 200); one step; 16x
+# the main path's replicas; alphas through device memory on both paths.
+HMM_KERNEL_CASES = [
+    (4096, 64, 4), (4097, 64, 4), (1000, 64, 2), (257, 100, 3), (64, 64, 16),
+    (40, 50, 32), (100, 30, 1), (33, 40, 64), (17, 20, 200), (5, 1, 4),
+    (65_536, 64, 4), (300, 600, 4), (9, 300, 200),
+]
+# (atol, rtol) of the kernels against their plain versions: a tenth of the
+# bars of tests/test_pallas_kernels.py (gamma atol 1e-5, log-evidence rtol
+# 1e-5), since on an H100 SXM the kernels stayed within 6e-8 (gamma) and
+# 2e-7 (log-evidence, relative) at these shapes; the summed counts, T-1
+# terms added in another order, at 3e-5 (there: 5e-6 relative).
+HMM_TOL = {"gamma": (1e-6, 0.0), "log_evidence": (0.0, 1e-6), "xi_sum": (3e-5, 3e-5)}
+
+# Data-sheet rates of the H100 SXM (NVIDIA's data sheet, dense, 700 W): HBM
+# bytes/s and float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -93,9 +129,11 @@ def _host64(x):
     return np.asarray(x, dtype=np.float64)
 
 
-def check_close(name: str, got, want, tol: float) -> float:
-    """Require finite ``got`` with ``|got - want| <= tol + tol |want|``
-    everywhere; return the largest absolute error."""
+def check_close(name: str, got, want, tol: float, rtol=None) -> float:
+    """Require finite ``got`` with ``|got - want| <= tol + rtol |want|``
+    everywhere (``rtol`` defaults to ``tol``); return the largest absolute
+    error."""
+    rtol = tol if rtol is None else rtol
     got, want = _host64(got), _host64(want)
     if got.shape != want.shape:
         raise SmokeFailure(f"{name}: shape {got.shape}, expected {want.shape}")
@@ -103,14 +141,63 @@ def check_close(name: str, got, want, tol: float) -> float:
         raise SmokeFailure(f"{name}: non-finite values")
     err = np.abs(got - want)
     worst = float(err.max()) if err.size else 0.0
-    if (err > tol + tol * np.abs(want)).any():
-        raise SmokeFailure(f"{name}: max abs err {worst} outside rtol=atol={tol}")
+    if (err > tol + rtol * np.abs(want)).any():
+        raise SmokeFailure(f"{name}: max abs err {worst} outside atol={tol}, rtol={rtol}")
     return worst
 
 
 def random_walk(n: int, T: int, seed: int):
     rng = np.random.default_rng(seed)
     return rng.normal(size=(n, T)).cumsum(axis=-1).astype(np.float32)
+
+
+def _logsumexp(x, axis):
+    m = np.max(x, axis=axis, keepdims=True)
+    return np.squeeze(m, axis) + np.log(np.sum(np.exp(x - m), axis=axis))
+
+
+def numpy_hmm_smoother(log_lik, log_A, log_pi):
+    """Float64 log-space forward-backward over the replicas of ``log_lik``
+    (n, T, K): returns ``(gamma, log_evidence)``, (n, T, K) and (n,)."""
+    ll = np.asarray(log_lik, dtype=np.float64)
+    la = np.asarray(log_A, dtype=np.float64)
+    n, T, K = ll.shape
+    alpha = np.empty((n, T, K))
+    beta = np.zeros((n, T, K))
+    alpha[:, 0] = np.asarray(log_pi, dtype=np.float64) + ll[:, 0]
+    for t in range(1, T):
+        alpha[:, t] = ll[:, t] + _logsumexp(alpha[:, t - 1, :, None] + la, axis=1)
+    for t in range(T - 2, -1, -1):
+        beta[:, t] = _logsumexp(la + (ll[:, t + 1] + beta[:, t + 1])[:, None, :], axis=2)
+    log_z = _logsumexp(alpha[:, -1], axis=-1)
+    return np.exp(alpha + beta - log_z[:, None, None]), log_z
+
+
+def hmm_inputs(R: int, T: int, K: int, seed: int):
+    """Kernel inputs as the TPU kernel's tests make them: ``lik`` ~ U(0.1,
+    1.1) (R, T, K), a row-stochastic ``A`` and a uniform ``pi``, float32."""
+    rng = np.random.default_rng(seed)
+    lik = (rng.random((R, T, K), dtype=np.float32) + np.float32(0.1))
+    A = rng.random((K, K)) + 0.2
+    A /= A.sum(axis=1, keepdims=True)
+    return lik, A.astype(np.float32), np.full(K, 1.0 / K, dtype=np.float32)
+
+
+def hmm_bound(R: int, T: int, K: int, counts: bool) -> dict:
+    """The least time of K2 (``counts=False``) or K3 on R x T x K: read
+    ``lik``, A and pi once, write ``gamma``, the log-evidence (and
+    ``xi_sum``) once; per replica-step about 4K^2 + 9K float32 operations
+    (forward and backward products, sums, divisions), 2K^2 + 3K more for
+    the counts."""
+    nbytes = 4 * (2 * R * T * K + R + K * K + K + (R * K * K if counts else 0))
+    ops = R * T * (4 * K * K + 9 * K + ((2 * K * K + 3 * K) if counts else 0))
+    return _bound(nbytes, ops)
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def phase_device(torch) -> dict:
@@ -159,6 +246,34 @@ def phase_kernel(torch, kernels) -> float:
              path=f"smem tile {tile}" if tile else "device memory",
              max_abs_err_mean=err_mean, max_abs_err_variance=err_var)
         worst = max(worst, err_mean, err_var)
+    return worst
+
+
+def phase_hmm_kernel(torch, kernels_hmm) -> dict:
+    """K2 and K3 against their plain versions on the card; returns the
+    largest absolute error of each over every case."""
+    worst = {"hmm_fb": 0.0, "hmm_fb_counts": 0.0}
+    for R, T, K in HMM_KERNEL_CASES:
+        lik, A, pi = (torch.from_numpy(a).cuda() for a in hmm_inputs(R, T, K, seed=R + T + K))
+        got2 = kernels_hmm.hmm_forward_backward_fused(lik, A, pi)
+        got3 = kernels_hmm.hmm_forward_backward_counts_fused(lik, A, pi)
+        torch.cuda.synchronize()
+        want = kernels_hmm.hmm_forward_backward_counts_fused_reference(lik, A, pi)
+        torch.cuda.synchronize()
+        errs = {}
+        for kernel, got, fields in (("hmm_fb", got2, ("gamma", "log_evidence")),
+                                    ("hmm_fb_counts", got3, ("gamma", "xi_sum", "log_evidence"))):
+            for field in fields:
+                atol, rtol = HMM_TOL[field]
+                err = check_close(f"{kernel} {field} {R}x{T}x{K}", getattr(got, field),
+                                  getattr(want, field), atol, rtol)
+                errs[f"{kernel}.{field}"] = err
+                worst[kernel] = max(worst[kernel], err)
+        group, alpha_smem = kernels_hmm.kernel_plan(T, K)
+        path = f"small K, {group} lanes a replica" if group else "general, a block a replica"
+        emit(phase="hmm_kernel", shape=[R, T, K], path=path,
+             alphas="shared memory" if alpha_smem else "device memory",
+             tol=HMM_TOL, max_abs_err=errs)
     return worst
 
 
@@ -225,6 +340,92 @@ def phase_main_path(torch, LGSSM, ops, kernels) -> int:
     return launches
 
 
+def run_hmm_main_path(torch, HMM, ops, device, R: int, T: int, K: int = HMM_K,
+                      M: int = HMM_M, n_iterations: int = HMM_ITERS, seed: int = 0) -> list:
+    """Drive the port's HMM path once at ``R`` replicas x ``T`` steps on
+    ``device`` through its public entry points, and check every result.
+
+    Observations are ``|random walk| mod M`` (as the JAX bench makes them),
+    emissions and transitions random row-stochastic, ``pi`` uniform.  The
+    smoothers are held against the float64 forward-backward on the first 64
+    replicas (gamma atol 1e-4, log-evidence rtol 1e-4); pooled VMP by the
+    kernel against pooled VMP by the scan (rtol 1e-3, the bar of
+    tests/test_hmm.py); per-replica VMP by the scan, with 5% of the steps
+    missing, against the same on the CPU (rtol 1e-4).  Returns the checks.
+    """
+    rng = np.random.default_rng(seed)
+    obs_np = np.abs(rng.normal(size=(R, T)).cumsum(axis=-1)).astype(np.int64) % M
+    A = rng.random((K, K)) + 0.2
+    A /= A.sum(axis=1, keepdims=True)
+    B = rng.random((K, M)) + 0.2
+    B /= B.sum(axis=1, keepdims=True)
+    log_lik_np = np.log(B).T[obs_np].astype(np.float32)  # (R, T, K)
+    log_A_np = np.log(A).astype(np.float32)
+    gaps_np = np.where(rng.random((R, T)) < 0.05, -1, obs_np)
+
+    model = HMM(K, torch.log(torch.full((K,), 1.0 / K))).to(device)
+    log_lik = torch.from_numpy(log_lik_np).to(device)
+    log_A = torch.from_numpy(log_A_np).to(device)
+    obs = torch.from_numpy(obs_np).to(device)
+    smooth = {m: model.smooth(log_lik, log_A, method=m) for m in ("scan", "fused")}
+    k2 = ops.hmm_forward_backward_fused(
+        torch.exp(log_lik), torch.exp(log_A), torch.exp(model.log_pi))
+    fits = {m: model.fit_vmp(obs, M, n_iterations=n_iterations, pooled=True, method=m)
+            for m in ("scan", "fused")}
+    per_replica = model.fit_vmp(torch.from_numpy(gaps_np).to(device), M,
+                                n_iterations=n_iterations)
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+    checks = []
+    gamma_ref, log_z_ref = numpy_hmm_smoother(
+        log_lik_np[:N_FB], log_A_np, np.log(np.full(K, 1.0 / K)))
+    for name, gamma, log_z in (
+        ("smooth scan", torch.exp(smooth["scan"].log_gamma), smooth["scan"].log_evidence),
+        ("smooth fused", torch.exp(smooth["fused"].log_gamma), smooth["fused"].log_evidence),
+        ("hmm_forward_backward_fused", k2.gamma, k2.log_evidence),
+    ):
+        if tuple(gamma.shape) != (R, T, K) or not bool(torch.isfinite(gamma).all()):
+            raise SmokeFailure(f"{name}: gamma not finite of shape ({R}, {T}, {K})")
+        checks.append({
+            "path": name, "against": "float64 forward-backward", "atol_gamma": 1e-4,
+            "rtol_log_evidence": 1e-4,
+            "max_abs_err_gamma": check_close(f"{name} gamma", gamma[:N_FB], gamma_ref, 1e-4, 0.0),
+            "max_abs_err_log_evidence": check_close(
+                f"{name} log_evidence", log_z[:N_FB], log_z_ref, 0.0, 1e-4),
+        })
+
+    cpu_model = HMM(K, model.log_pi.cpu())
+    cpu_fit = cpu_model.fit_vmp(torch.from_numpy(gaps_np), M, n_iterations=n_iterations)
+    for name, got, want, tol, against in (
+        ("pooled VMP fused", fits["fused"], fits["scan"], 1e-3, "pooled VMP scan"),
+        ("per-replica VMP with gaps", per_replica, cpu_fit, 1e-4, "port on cpu"),
+    ):
+        errs = {
+            "trans_alpha": check_close(f"{name} trans_alpha", got.state.trans_alpha,
+                                       want.state.trans_alpha, 0.0, tol),
+            "emis_alpha": check_close(f"{name} emis_alpha", got.state.emis_alpha,
+                                      want.state.emis_alpha, 0.0, tol),
+            "elbo": check_close(f"{name} elbo", got.elbo, want.elbo, 0.0, tol),
+        }
+        checks.append({"path": name, "against": against, "rtol": tol, "max_abs_err": errs})
+    return checks
+
+
+def phase_hmm_main_path(torch, HMM, ops, kernels) -> dict:
+    for key in ("hmm_fb", "hmm_fb_counts"):
+        kernels.LAUNCHES[key] = 0
+    checks = run_hmm_main_path(torch, HMM, ops, "cuda", HMM_R, HMM_T)
+    launches = {key: kernels.LAUNCHES[key] for key in ("hmm_fb", "hmm_fb_counts")}
+    for check in checks:
+        emit(phase="hmm_main_path", R=HMM_R, T=HMM_T, K=HMM_K, M=HMM_M, **check)
+    emit(phase="hmm_main_path", launches=launches)
+    # K3: one smooth and one per VMP iteration; K2: the op called once.
+    if launches["hmm_fb_counts"] < 1 + HMM_ITERS or launches["hmm_fb"] < 1:
+        raise SmokeFailure(f"the HMM main path launched its kernels too few times: {launches}")
+    return launches
+
+
 def median_ms(torch, fn, flush, runs: int = 25, warmup: int = 3) -> float:
     """Median device time of ``fn`` in ms over ``runs`` calls, each timed by
     its own pair of CUDA events.  Before each, outside the timing, a read of
@@ -245,6 +446,49 @@ def median_ms(torch, fn, flush, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+# Names of the device kernels that each timed path launches, as the profiler
+# reports them.
+DEVICE_KERNELS = {
+    "kernel": ("smooth_smem_kernel", "smooth_global_kernel"),
+    "hmm_fb": ("fb_small_kernel", "fb_general_kernel"),
+    "hmm_fb_counts": ("fb_small_kernel", "fb_general_kernel"),
+    "probe": ("elementwise_kernel",),
+}
+
+
+def _device_us(torch, fn, runs: int) -> dict:
+    """Device time in µs of each kernel that ``runs`` calls of ``fn`` launch,
+    by name, from ``torch.profiler``'s CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for avg in prof.key_averages():
+        us = getattr(avg, "self_device_time_total", 0.0) or getattr(
+            avg, "self_cuda_time_total", 0.0)
+        if us > 0:
+            times[avg.key] = us
+    return times
+
+
+def device_ms(torch, fn, flush, names=None, runs: int = 25):
+    """Mean device time per call of ``fn``, each call after the L2-evicting
+    read, in the kernels whose names contain one of ``names`` (default: every
+    kernel but the eviction's); None when the profiler records none.  Unlike
+    :func:`median_ms`, it leaves out the host's time to enqueue the call."""
+    fn()
+    torch.cuda.synchronize()
+    evicting = set(_device_us(torch, flush.sum, 1))
+    total_us = 0.0
+    for key, us in _device_us(torch, lambda: (flush.sum(), fn()), runs).items():
+        if (any(name in key for name in names) if names else key not in evicting):
+            total_us += us
+    return total_us / runs / 1e3 if total_us > 0 else None
+
+
 def phase_times(torch, LGSSM, ops, card: str) -> dict:
     """Per-sweep times of each path; returns {R: {path: ms}}."""
     model = LGSSM()
@@ -256,6 +500,8 @@ def phase_times(torch, LGSSM, ops, card: str) -> dict:
         "assoc": lambda y: model.smooth(y, method="assoc"),
         "kernel": lambda y: ops.lgssm_smooth_fused(y),
         "plain": lambda y: ops.lgssm_smooth_fused_reference(y),
+        # The one PyTorch call that computes the means: the precomputed operator.
+        "library": lambda y: torch.matmul(y, op[0]),
         # Matched traffic: read y once, write two (R, T) outputs (12 B/replica-step).
         "probe": lambda y: (y * 1.000001, y + 0.5),
     }
@@ -274,6 +520,66 @@ def phase_times(torch, LGSSM, ops, card: str) -> dict:
                  ms_rounds=pair, s_per_sweep=ms / 1e3,
                  message_updates_per_s=R * (3 * T_MAIN - 2) / (ms / 1e3),
                  gb_per_s_at_12B=12 * R * T_MAIN / (ms / 1e3) / 1e9, card=card)
+        for name in ("kernel", "probe", "library"):
+            ms = device_ms(torch, lambda: paths[name](y), flush, DEVICE_KERNELS.get(name))
+            result[R][f"{name} device"] = ms
+            emit(phase="times", R=R, T=T_MAIN, path=name, timer="profiler, device time",
+                 device_ms_per_sweep=ms, card=card)
+    return result
+
+
+def phase_hmm_times(torch, HMM, kernels_hmm, card: str) -> dict:
+    """Per-VMP-iteration times of both E-steps at the main path's width, and
+    per-call times of K2, K3, their plain versions and a matched-traffic
+    probe; returns {R: {path: ms}}."""
+    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
+    model = HMM(HMM_K, torch.log(torch.full((HMM_K,), 1.0 / HMM_K))).to("cuda")
+    rng = np.random.default_rng(1)
+    walk = rng.normal(size=(HMM_R, HMM_T)).cumsum(axis=-1)
+    obs = torch.from_numpy(np.abs(walk).astype(np.int64) % HMM_M).cuda()
+    for method in ("scan", "fused"):
+        # One iteration's time: five iterations less one (both end in the
+        # same final smoothing pass), over four.
+        fit_ms = {n: median_ms(torch, lambda: model.fit_vmp(
+            obs, HMM_M, n_iterations=n, pooled=True, method=method), flush, runs=5, warmup=1)
+            for n in (1, 5)}
+        per_iter_ms = (fit_ms[5] - fit_ms[1]) / 4
+        emit(phase="hmm_times", R=HMM_R, T=HMM_T, K=HMM_K, M=HMM_M, e_step=method,
+             us_per_vmp_iteration=per_iter_ms * 1e3, fit_ms=fit_ms,
+             message_updates_per_s=HMM_R * HMM_T * 3 / (per_iter_ms / 1e3), card=card)
+
+    result = {}
+    for R in HMM_R_TIMES:
+        lik, A, pi = (torch.from_numpy(a).cuda() for a in hmm_inputs(R, HMM_T, HMM_K, seed=R))
+        paths = {
+            "hmm_fb": (lambda: kernels_hmm.hmm_forward_backward_fused(lik, A, pi), 25),
+            "hmm_fb_counts": (
+                lambda: kernels_hmm.hmm_forward_backward_counts_fused(lik, A, pi), 25),
+            "hmm_fb plain": (
+                lambda: kernels_hmm.hmm_forward_backward_fused_reference(lik, A, pi), 5),
+            "hmm_fb_counts plain": (
+                lambda: kernels_hmm.hmm_forward_backward_counts_fused_reference(lik, A, pi), 5),
+            # Matched traffic: read lik once, write one (R, T, K) tensor.
+            "probe": (lambda: lik * 1.000001, 25),
+        }
+        order = list(paths) + list(reversed(paths))  # each path twice, in turns
+        samples = {name: [] for name in paths}
+        for name in order:
+            fn, runs = paths[name]
+            samples[name].append(median_ms(torch, fn, flush, runs=runs, warmup=2))
+        result[R] = {}
+        for name, pair in samples.items():
+            ms = statistics.mean(pair)
+            result[R][name] = ms
+            emit(phase="hmm_times", R=R, T=HMM_T, K=HMM_K, path=name, ms=ms, ms_rounds=pair,
+                 gb_per_s_at_8K_B=8 * HMM_K * R * HMM_T / (ms / 1e3) / 1e9, card=card)
+        for name in ("hmm_fb", "hmm_fb_counts", "probe"):
+            ms = device_ms(torch, paths[name][0], flush, DEVICE_KERNELS[name])
+            result[R][f"{name} device"] = ms
+            emit(phase="hmm_times", R=R, T=HMM_T, K=HMM_K, path=name,
+                 timer="profiler, device time", device_ms=ms,
+                 gb_per_s_at_8K_B=8 * HMM_K * R * HMM_T / (ms / 1e3) / 1e9 if ms else None,
+                 card=card)
     return result
 
 
@@ -283,23 +589,45 @@ def main() -> None:
     device = phase_device(torch)
     sys.path.insert(0, REPO)
     from cortex_tpu_torch import _build, ops
-    from cortex_tpu_torch.models import LGSSM
-    from cortex_tpu_torch.ops import kernels
+    from cortex_tpu_torch.models import HMM, LGSSM
+    from cortex_tpu_torch.ops import kernels, kernels_hmm
 
     phase_build(kernels, _build)
-    worst = phase_kernel(torch, kernels)
-    launches = phase_main_path(torch, LGSSM, ops, kernels)
+    worst = {"lgssm_smooth": phase_kernel(torch, kernels), **phase_hmm_kernel(torch, kernels_hmm)}
+    launches = {"lgssm_smooth": phase_main_path(torch, LGSSM, ops, kernels),
+                **phase_hmm_main_path(torch, HMM, ops, kernels)}
     times = phase_times(torch, LGSSM, ops, device["nvidia_smi"])
-    print(json.dumps({"kernels": [{
-        "name": "lgssm_smooth",
-        "route": "cuda",
-        "source": "cortex_tpu_torch/csrc/lgssm_smooth.cu",
-        "replaces": "cortex_tpu/ops/pallas_kernels.py:99",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": times[R_MAIN]["kernel"],
-        "plain_ms": times[R_MAIN]["plain"],
-    }]}), flush=True)
+    hmm_times = phase_hmm_times(torch, HMM, kernels_hmm, device["nvidia_smi"])
+    hmm_source = "cortex_tpu_torch/csrc/hmm_forward_backward.cu"
+    print(json.dumps({"kernels": [
+        {
+            "name": "lgssm_smooth",
+            "route": "cuda",
+            "source": "cortex_tpu_torch/csrc/lgssm_smooth.cu",
+            "replaces": "cortex_tpu/ops/pallas_kernels.py:99",
+            "launches": launches["lgssm_smooth"],
+            "max_abs_err": worst["lgssm_smooth"],
+            "ms": times[R_MAIN]["kernel device"] or times[R_MAIN]["kernel"],
+            "plain_ms": times[R_MAIN]["plain"],
+            # y read once, mean and variance written once; ~8 operations a
+            # replica-step.
+            **_bound(12 * R_MAIN * T_MAIN + 12 * T_MAIN, 8 * R_MAIN * T_MAIN),
+            "library_ms": times[R_MAIN]["library device"] or times[R_MAIN]["library"],
+        },
+        *({
+            "name": name,
+            "route": "cuda",
+            "source": hmm_source,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": worst[name],
+            "ms": hmm_times[HMM_R][f"{name} device"] or hmm_times[HMM_R][name],
+            "plain_ms": hmm_times[HMM_R][f"{name} plain"],
+            **hmm_bound(HMM_R, HMM_T, HMM_K, counts=name == "hmm_fb_counts"),
+            "library_ms": None,  # no one PyTorch call computes a scaled forward-backward
+        } for name, replaces in (("hmm_fb", "cortex_tpu/ops/pallas_hmm.py:158"),
+                                 ("hmm_fb_counts", "cortex_tpu/ops/pallas_hmm.py:202"))),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["name"], "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -4,9 +4,12 @@ It mirrors the JAX package's layout, so each function has its counterpart
 at the same path:
 
 - :mod:`cortex_tpu_torch.ops` — scalar-chain message passing (scan, matmul
-  and associative-scan smoothers) and the fused smoothing sweep, a CUDA
-  kernel written by hand for ``sm_90a`` with a plain PyTorch twin,
-- :mod:`cortex_tpu_torch.models` — model families (LGSSM),
+  and associative-scan smoothers), discrete-chain forward-backward and
+  Viterbi, and the CUDA kernels written by hand for ``sm_90a`` (the fused
+  smoothing sweep, the scaled HMM forward-backward), each with a plain
+  PyTorch twin,
+- :mod:`cortex_tpu_torch.dists` — exponential families (Dirichlet),
+- :mod:`cortex_tpu_torch.models` — model families (LGSSM, HMM),
 - :mod:`cortex_tpu_torch.convert` — carry parameters and operators across
   from numpy.
 
@@ -17,7 +20,7 @@ It imports ``torch`` and never ``jax``.  CUDA kernels are built with
 __version__ = "0.1.0"
 
 # Submodules load lazily (PEP 562), as in the JAX package.
-_SUBMODULES = ("convert", "models", "ops")
+_SUBMODULES = ("convert", "dists", "models", "ops")
 
 __all__ = ["__version__"] + list(_SUBMODULES)
 

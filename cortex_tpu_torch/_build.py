@@ -1,6 +1,7 @@
 """Build the package's CUDA kernels with ``nvcc`` at first use and load them.
 
-Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) into one shared
+Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) by its own
+``nvcc``, all started together, and the objects are linked into one shared
 library with a plain C interface, which :func:`load` opens with ``ctypes``.
 The library lands in ``build/cortex_tpu_torch/`` at the root of the checkout
 (git-ignored), named by a hash of the sources, the flags and the ``nvcc``
@@ -20,7 +21,8 @@ from pathlib import Path
 from typing import List, Sequence
 
 __all__ = [
-    "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library_name", "load", "nvcc_command", "sources",
+    "BUILD_DIR", "NVCC_FLAGS", "compile_command", "find_nvcc", "library_name", "link_command",
+    "load", "sources",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -29,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cortex_tpu_torch
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xptxas=-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # CUDA's default install prefix, tried after PATH and CUDA_HOME.
@@ -56,9 +58,15 @@ def find_nvcc() -> str:
     )
 
 
-def nvcc_command(nvcc: str, out: Path) -> List[str]:
-    """The command line that compiles :func:`sources` into ``out``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def compile_command(nvcc: str, src: Path, obj: Path) -> List[str]:
+    """The command line that compiles one source into the object ``obj``."""
+    return [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+
+
+def link_command(nvcc: str, objs: Sequence[Path], out: Path) -> List[str]:
+    """The command line that links the objects into the shared library ``out``."""
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(out),
+            *map(str, objs)]
 
 
 def library_name(nvcc_version: str, srcs: Sequence[Path]) -> str:
@@ -85,14 +93,30 @@ def load() -> ctypes.CDLL:
     path = BUILD_DIR / library_name(version, sorted(CSRC_DIR.glob("*.cu*")))
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(nvcc_command(nvcc, tmp), capture_output=True, text=True)
-        if proc.returncode != 0:
+        tag = f"{path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+        procs = [
+            subprocess.Popen(compile_command(nvcc, src, obj), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)
+        ]
+        log = ""
+        failed = False
+        for src, proc in zip(sources(), procs):
+            out, _ = proc.communicate()
+            log += f"== {src.name}\n{out}"
+            failed |= proc.returncode != 0
+        tmp = path.with_name(f"{tag}.tmp")
+        if not failed:
+            link = subprocess.run(link_command(nvcc, objs, tmp), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            log += f"== link\n{link.stdout}"
+            failed = link.returncode != 0
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {path.name}:\n"
-                + proc.stdout + proc.stderr
-            )
-        path.with_name(path.name + ".log").write_text(proc.stdout + proc.stderr)
+            raise RuntimeError(f"nvcc failed building {path.name}:\n{log}")
+        path.with_name(path.name + ".log").write_text(log)
         os.replace(tmp, path)
     return ctypes.CDLL(str(path))

@@ -1,9 +1,11 @@
-"""Carry model parameters, smoother operators and priors across from numpy.
+"""Carry model parameters, smoother operators, priors and VMP states across from numpy.
 
 These take what the JAX package produces, as plain Python or numpy values
 (``dataclasses.asdict`` of a model, ``np.asarray`` of arrays), and return the
 port's objects, so the two packages compute the same thing on the same
 inputs.  They import neither package's arrays: numpy is the common ground.
+Those that make tensors put them on the card unless the caller names
+another ``device``.
 """
 
 from __future__ import annotations
@@ -13,9 +15,16 @@ from typing import Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .models.hmm import HMM, HMMVMPState
 from .models.lgssm import LGSSM
 
-__all__ = ["lgssm_from_numpy", "operator_from_numpy", "prior_from_numpy"]
+__all__ = [
+    "hmm_from_numpy",
+    "hmm_state_from_numpy",
+    "lgssm_from_numpy",
+    "operator_from_numpy",
+    "prior_from_numpy",
+]
 
 
 def lgssm_from_numpy(params: Mapping[str, object]) -> LGSSM:
@@ -28,7 +37,7 @@ def lgssm_from_numpy(params: Mapping[str, object]) -> LGSSM:
 
 
 def operator_from_numpy(
-    operator: Sequence[object], device=None
+    operator: Sequence[object], device="cuda"
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The smoother operator ``(S, c, v)`` of ``lgssm_smoother_operator`` as
     tensors on ``device``, in the arrays' own dtype."""
@@ -42,7 +51,7 @@ def operator_from_numpy(
 
 
 def prior_from_numpy(
-    prior: Optional[Sequence[object]], dtype=torch.float32, device=None
+    prior: Optional[Sequence[object]], dtype=torch.float32, device="cuda"
 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """A ``(mean, variance)`` prior as tensors (scalars or batch-shaped);
     ``None`` stays ``None``."""
@@ -53,3 +62,23 @@ def prior_from_numpy(
         torch.tensor(np.asarray(mean), dtype=dtype, device=device),
         torch.tensor(np.asarray(var), dtype=dtype, device=device),
     )
+
+
+def hmm_from_numpy(params: Mapping[str, object], device="cuda") -> HMM:
+    """The port's :class:`HMM` from ``{"K", "log_pi"}`` (for example
+    ``dataclasses.asdict`` of the JAX ``HMM``), ``log_pi`` on ``device`` in
+    its own dtype.  Other keys raise."""
+    unknown = set(params) - {"K", "log_pi"}
+    if unknown:
+        raise ValueError(f"not HMM parameters: {sorted(unknown)}")
+    return HMM(int(params["K"]), torch.tensor(np.asarray(params["log_pi"]), device=device))
+
+
+def hmm_state_from_numpy(trans_alpha, emis_alpha, device="cuda") -> HMMVMPState:
+    """An :class:`HMMVMPState` (for example the fields of a JAX
+    ``HMMVMPState``) as tensors on ``device``, in the arrays' own dtype;
+    ``emis_alpha`` may be ``None``."""
+    def tensor(a):
+        return None if a is None else torch.tensor(np.asarray(a), device=device)
+
+    return HMMVMPState(tensor(trans_alpha), tensor(emis_alpha))

@@ -1,4 +1,4 @@
-"""Scalar-chain message passing in PyTorch, and its hand-written CUDA kernel."""
+"""Message passing on chains in PyTorch, and the port's hand-written CUDA kernels."""
 
 from .chains import (
     ChainMarginals,
@@ -9,7 +9,14 @@ from .chains import (
     lgssm_smoother_operator,
     scalar_kalman_update,
 )
+from .hmm import HMMPosterior, hmm_forward_backward, hmm_viterbi
 from .kernels import lgssm_smooth_fused, lgssm_smooth_fused_reference
+from .kernels_hmm import (
+    hmm_forward_backward_counts_fused,
+    hmm_forward_backward_counts_fused_reference,
+    hmm_forward_backward_fused,
+    hmm_forward_backward_fused_reference,
+)
 
 __all__ = [
     "ChainMarginals",
@@ -21,4 +28,11 @@ __all__ = [
     "scalar_kalman_update",
     "lgssm_smooth_fused",
     "lgssm_smooth_fused_reference",
+    "HMMPosterior",
+    "hmm_forward_backward",
+    "hmm_viterbi",
+    "hmm_forward_backward_fused",
+    "hmm_forward_backward_fused_reference",
+    "hmm_forward_backward_counts_fused",
+    "hmm_forward_backward_counts_fused_reference",
 ]

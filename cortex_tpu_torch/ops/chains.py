@@ -172,10 +172,11 @@ def lgssm_smoother_operator(
     R: float = 1.0,
     prior: Optional[Prior] = None,
     dtype: torch.dtype = torch.float32,
-    device=None,
+    device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Precompute the affine smoother ``(S, c, v)``: ``mean = y @ S + c``,
-    ``variance = v`` (shape ``(T,)``, data-independent).
+    ``variance = v`` (shape ``(T,)``, data-independent), on ``device`` (the
+    card unless the caller asks for another).
 
     Built by smoothing the T×T identity through :func:`lgssm_smooth_scan`,
     so it is exact for any (A, Q, H, R) and keeps the prior convention.

@@ -11,8 +11,9 @@ plain version,
 :func:`lgssm_smooth_fused_reference`; on a CUDA tensor it launches the
 kernel (building it at first use) or raises.
 
-``LAUNCHES`` counts the kernel's launches, so that a run can show that its
-path went through the kernel.
+``LAUNCHES`` counts each kernel's launches (this module's and those of
+:mod:`~cortex_tpu_torch.ops.kernels_hmm`), so that a run can show that its
+path went through the kernels.  :func:`_library` builds and binds them all.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ __all__ = [
     "sweep_coefficients",
 ]
 
-LAUNCHES = {"lgssm_smooth": 0}
+LAUNCHES = {"lgssm_smooth": 0, "hmm_fb": 0, "hmm_fb_counts": 0}
 
 # Shared memory one block may opt into on Hopper (227 KB), and the replica
 # tiles the shared-memory path tries, largest first.
@@ -159,6 +160,11 @@ def _library() -> ctypes.CDLL:
     lib.lgssm_smooth_global_f32.restype = i32
     lib.lgssm_cuda_error_string.argtypes = [i32]
     lib.lgssm_cuda_error_string.restype = ctypes.c_char_p
+    # lik, A, At, pi, gamma, [xi_sum,] log_evidence, R, T, K, group, alpha_in_smem, stream
+    lib.hmm_forward_backward_f32.argtypes = [ptr] * 6 + [i64, i32, i32, i32, i32, ptr]
+    lib.hmm_forward_backward_f32.restype = i32
+    lib.hmm_forward_backward_counts_f32.argtypes = [ptr] * 7 + [i64, i32, i32, i32, i32, ptr]
+    lib.hmm_forward_backward_counts_f32.restype = i32
     return lib
 
 

@@ -65,7 +65,8 @@ def test_scan_batch_prior_and_unbatched_chain():
     y = _walk(3, SHAPE)
     pm = np.linspace(-1.0, 1.0, SHAPE[0]).astype(np.float32)
     pv = np.linspace(0.5, 2.0, SHAPE[0]).astype(np.float32)
-    port = tc.lgssm_smooth_scan(torch.from_numpy(y), prior=prior_from_numpy((pm, pv)))
+    prior = prior_from_numpy((pm, pv), device="cpu")
+    port = tc.lgssm_smooth_scan(torch.from_numpy(y), prior=prior)
     ref = jc.lgssm_smooth_scan(jnp.asarray(y), prior=(jnp.asarray(pm), jnp.asarray(pv)))
     assert_marginals(port, ref, 1e-5)
     one = tc.lgssm_smooth_scan(torch.from_numpy(y[0]))
@@ -74,7 +75,7 @@ def test_scan_batch_prior_and_unbatched_chain():
 
 @pytest.mark.parametrize("params", PARAMS)
 def test_operator_matches_jax(params):
-    port = tc.lgssm_smoother_operator(SHAPE[1], **params, prior=(0.3, 2.0))
+    port = tc.lgssm_smoother_operator(SHAPE[1], **params, prior=(0.3, 2.0), device="cpu")
     ref = jc.lgssm_smoother_operator(SHAPE[1], **params, prior=(0.3, 2.0))
     for p, r in zip(port, ref):
         np.testing.assert_allclose(p.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
@@ -93,9 +94,9 @@ def test_matmul_with_precomputed_operator():
     y = _walk(9, SHAPE)
     A, Q, H, R = 0.95, 0.8, 1.2, 0.5
     ref = jc.lgssm_smooth_scan(jnp.asarray(y), A, Q, H, R)
-    own = tc.lgssm_smoother_operator(40, A, Q, H, R)
+    own = tc.lgssm_smoother_operator(40, A, Q, H, R, device="cpu")
     carried = operator_from_numpy(
-        [np.asarray(a) for a in jc.lgssm_smoother_operator(40, A, Q, H, R)]
+        [np.asarray(a) for a in jc.lgssm_smoother_operator(40, A, Q, H, R)], device="cpu"
     )
     for op in (own, carried):
         out = tc.lgssm_smooth_matmul(torch.from_numpy(y), operator=op)

@@ -129,15 +129,26 @@ def test_kernel_arithmetic_matches_plain_version(params, T):
 
 
 def test_build_command_targets_sm90a_and_only_package_sources():
-    out = Path("lib.so")
-    cmd = _build.nvcc_command("nvcc", out)
-    assert cmd[0] == "nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and cmd[cmd.index("-o") + 1] == str(out)
+    """One nvcc per source, each compiling that source alone for sm_90a into
+    an object, then one link of the objects into the shared library."""
     csrc = Path(_build.__file__).parent / "csrc"
-    srcs = [Path(a) for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]
+    srcs = _build.sources()
     assert srcs == sorted(csrc.glob("*.cu"))
-    assert srcs and all(p.parent == csrc for p in srcs)
+    assert {p.name for p in srcs} >= {"lgssm_smooth.cu", "hmm_forward_backward.cu"}
+    objs = []
+    for src in srcs:
+        obj = Path(f"{src.stem}.o")
+        cmd = _build.compile_command("nvcc", src, obj)
+        assert cmd[0] == "nvcc"
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-c" in cmd and "-shared" not in cmd and cmd[cmd.index("-o") + 1] == str(obj)
+        assert [Path(a) for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))] == [src]
+        objs.append(obj)
+    out = Path("lib.so")
+    link = _build.link_command("nvcc", objs, out)
+    assert "arch=compute_90a,code=sm_90a" in link
+    assert "-shared" in link and link[link.index("-o") + 1] == str(out)
+    assert [Path(a) for a in link if a.endswith(".o")] == objs
 
 
 def test_library_name_keys_on_sources_and_nvcc_version(tmp_path):

@@ -9,6 +9,7 @@ in float32.  Tolerances: 1e-5 where both run the same float32 recursion;
 import ast
 import dataclasses
 import importlib.util
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -55,7 +56,7 @@ def _load_chip_smoke():
 def test_smooth_matches_jax_model(method, params, prior):
     y = _walk(0, SHAPE)
     port = LGSSM(**params).smooth(
-        torch.from_numpy(y), prior=convert.prior_from_numpy(prior), method=method
+        torch.from_numpy(y), prior=convert.prior_from_numpy(prior, device="cpu"), method=method
     )
     ref = jmodels.LGSSM(**params).smooth(jnp.asarray(y), prior=prior, method=method)
     _close(port.mean, ref.mean, TOL[method])
@@ -117,16 +118,26 @@ def test_lgssm_from_numpy_takes_the_jax_dataclass():
 
 def test_operator_and_prior_from_numpy():
     op = [np.asarray(a) for a in jax_operator(SHAPE[1], 0.9, 0.5, 2.0, 0.3)]
-    S, c, v = convert.operator_from_numpy(op)
+    S, c, v = convert.operator_from_numpy(op, device="cpu")
     assert S.shape == (32, 32) and c.shape == v.shape == (32,)
     assert S.dtype == torch.float32
     _close(S, op[0], 0.0)
     with pytest.raises(ValueError, match="operator must be"):
-        convert.operator_from_numpy((op[0], op[1][:3], op[2]))
+        convert.operator_from_numpy((op[0], op[1][:3], op[2]), device="cpu")
     assert convert.prior_from_numpy(None) is None
-    pm, pv = convert.prior_from_numpy((np.ones(3), 2.0))
+    pm, pv = convert.prior_from_numpy((np.ones(3), 2.0), device="cpu")
     assert pm.dtype == pv.dtype == torch.float32
     assert pm.shape == (3,) and pv.shape == ()
+
+
+@pytest.mark.parametrize(
+    "fn",
+    [ops.lgssm_smoother_operator, convert.operator_from_numpy, convert.prior_from_numpy,
+     convert.hmm_from_numpy, convert.hmm_state_from_numpy],
+    ids=lambda fn: fn.__name__,
+)
+def test_entry_points_that_make_tensors_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_slice_end_to_end():
