@@ -1,12 +1,12 @@
-"""Drive the PyTorch port's LGSSM smoothing and HMM paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's LGSSM smoothing, HMM and HGF paths once on an NVIDIA GPU.
 
 Run from the root of a checkout, with one CUDA card::
 
     python3 chip_smoke.py
 
 It imports nothing of JAX: its references are a float64 numpy RTS smoother,
-a float64 numpy log-space forward-backward and the port's own plain
-versions.  Phases, each printing JSON lines:
+a float64 numpy log-space forward-backward, a float64 numpy HGF and the
+port's own plain versions.  Phases, each printing JSON lines:
 
 1. ``device``: the card's name and ``nvidia-smi``'s name and power limit.
 2. ``build``: builds the CUDA kernels from ``cortex_tpu_torch/csrc`` with
@@ -30,6 +30,18 @@ versions.  Phases, each printing JSON lines:
    replicas.
 8. ``hmm_times``: per-VMP-iteration times of both E-steps, and K2, K3, their
    plain versions and a matched-traffic probe at 4,096 and 65,536 replicas.
+9. ``hgf_kernel``: the HGF filter kernel (K4) against its plain version on
+   the card: at the main path's shape with all five tracks, none, and two in
+   bf16; ragged R; one step; T the TPU kernel refused; non-default
+   parameters; parameters that make every guard fire (counted in float64).
+10. ``hgf_main_path``: at 65,536 replicas x T=256 (the JAX bench's
+    ``ladder.hgf``), ``HGF.filter`` by scan and by the kernel and
+    ``ops.hgf_filter_fused`` against the float64 HGF; ``stream_filter`` and
+    ``StreamingSession`` over 8 chunks of 32 steps against the batch filter;
+    ``BinaryHGF.filter`` against the CPU; K4's launch count over this phase.
+11. ``hgf_times``: K4 (device and call time), its plain version, the scan
+    path and a matched-traffic probe for three track sets, and the floor
+    probe (one HGF step on every element at once), each beside its bound.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 A failed check raises: the exit code is non-zero and the last line is not
@@ -86,10 +98,56 @@ HMM_KERNEL_CASES = [
 # terms added in another order, at 3e-5 (there: 5e-6 relative).
 HMM_TOL = {"gamma": (1e-6, 0.0), "log_evidence": (0.0, 1e-6), "xi_sum": (3e-5, 3e-5)}
 
+# The HGF path at the width of the JAX bench's ladder.hgf (bench.py:835-876),
+# streamed in 8 chunks of 32 steps.
+HGF_R, HGF_T, HGF_CHUNK = 65_536, 256, 32
+N_HGF = 64  # replicas held against the float64 numpy HGF
+ALL5 = ("mu1", "pi1", "mu2", "pi2", "delta1")
+HGF_NONDEFAULT = {"kappa": 1.4, "omega": -3.0, "theta": 0.2, "pi_u": 4.0,
+                  "max_log_nu": 8.0, "min_pi2": 0.05, "max_mu2_step": 2.0}
+# On u = 10 x normal every guard fires: about 15,000, 50 and 15,000 of 64 x 256
+# replica-steps clip the log-volatility, floor pi2 and clip the mu2 step.
+HGF_GUARDS = {"kappa": 2.0, "omega": -1.0, "theta": 0.5, "pi_u": 1000.0,
+              "max_log_nu": 1.5, "min_pi2": 0.3, "max_mu2_step": 0.1}
+# (R, T, tracks, bf16 tracks, parameters, data): the main path's shape with all
+# five tracks, none, and two reordered in bf16; ragged R; a ragged block and
+# chunk; one step; T that the TPU kernel refused for VMEM (above 2,500 with
+# five tracks, above 10,837 with none); non-default parameters; every guard.
+HGF_KERNEL_CASES = [
+    (HGF_R, HGF_T, ALL5, False, {}, "walk"),
+    (HGF_R, HGF_T, (), False, {}, "walk"),
+    (HGF_R, HGF_T, ("mu2", "mu1"), True, {}, "walk"),
+    (HGF_R + 1, HGF_T, ALL5, False, {}, "walk"),
+    (700, 48, ALL5, False, {}, "walk"),
+    (1000, 1, ALL5, False, {}, "walk"),
+    (16, 4096, ALL5, False, {}, "walk"),
+    (16, 16_384, (), False, {}, "walk"),
+    (4096, 256, ("delta1", "pi2", "pi1"), False, HGF_NONDEFAULT, "walk"),
+    (4096, 256, ALL5, True, HGF_GUARDS, "noisy"),
+]
+# K4 against its plain version: finals and float32 tracks within 1e-5 (atol
+# = rtol; the bar of tests/test_hgf.py), bf16 tracks within one bf16 ulp.
+HGF_TOL = 1e-5
+# The float32 paths against the float64 numpy HGF: atol = rtol = 1e-4 (on
+# the CPU at 2,048 x 256 the plain version stayed within 7.2e-6 absolute, on
+# an H100 at 65,536 x 256 within 1.7e-4 for pi1 ~ 130, 3.9e-6 for the rest);
+# BinaryHGF on the card against the CPU (another exp and sigmoid): 5e-5 (on
+# an H100 within 6.2e-6).
+HGF_F64_TOL = 1e-4
+BINARY_TOL = 5e-5
+# Track sets timed, by name: (tracks, bf16 tracks).
+HGF_CONFIGS = {"all five f32": (ALL5, False), "filter only": ((), False),
+               "mu1 mu2 bf16": (("mu1", "mu2"), True)}
+
 # Data-sheet rates of the H100 SXM (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s and float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# Operations of one HGF replica-step: about 35 float32 adds, multiplies and
+# compares, plus one exp and five reciprocals or divisions on the special
+# function unit, which issues 16 a cycle per SM against 128 float32 lanes:
+# each counted as 8 float32 operations.
+HGF_OPS_PER_STEP = 35 + 8 * 6
 
 
 class SmokeFailure(RuntimeError):
@@ -146,6 +204,21 @@ def check_close(name: str, got, want, tol: float, rtol=None) -> float:
     return worst
 
 
+def check_bf16(name: str, got, want) -> float:
+    """Require bfloat16 ``got`` within one bfloat16 ulp of ``want`` (of the
+    same dtype) everywhere; return the largest absolute difference."""
+    got, want = _host64(got.float()), _host64(want.float())
+    if got.shape != want.shape:
+        raise SmokeFailure(f"{name}: shape {got.shape}, expected {want.shape}")
+    if not np.isfinite(got).all():
+        raise SmokeFailure(f"{name}: non-finite values")
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0**-126))) - 7)
+    err = np.abs(got - want)
+    if (err > ulp).any():
+        raise SmokeFailure(f"{name}: differs by more than one bfloat16 ulp")
+    return float(err.max()) if err.size else 0.0
+
+
 def random_walk(n: int, T: int, seed: int):
     rng = np.random.default_rng(seed)
     return rng.normal(size=(n, T)).cumsum(axis=-1).astype(np.float32)
@@ -173,6 +246,44 @@ def numpy_hmm_smoother(log_lik, log_A, log_pi):
     return np.exp(alpha + beta - log_z[:, None, None]), log_z
 
 
+HGF_DEFAULTS = {"kappa": 1.0, "omega": -2.0, "theta": 0.05, "pi_u": 10.0,
+                "max_log_nu": 20.0, "min_pi2": 1e-2, "max_mu2_step": 5.0}
+
+
+def numpy_hgf(u, **params):
+    """Float64 2-level HGF over the rows of ``u`` (n, T) from the zero state,
+    with the model's guards.  Returns ``(finals, tracks, fires)``: the final
+    ``(mu1, pi1, mu2, pi2)``, each (n,); a dict of the five tracks, each (n,
+    T); and how many replica-steps each guard changed."""
+    p = {**HGF_DEFAULTS, **params}
+    u = np.asarray(u, dtype=np.float64)
+    n, T = u.shape
+    mu1, pi1, mu2, pi2 = np.zeros(n), np.ones(n), np.zeros(n), np.ones(n)
+    tracks = {name: np.empty((n, T)) for name in ("mu1", "pi1", "mu2", "pi2", "delta1")}
+    fires = {"max_log_nu": 0, "min_pi2": 0, "max_mu2_step": 0}
+    for t in range(T):
+        raw = p["kappa"] * mu2 + p["omega"]
+        log_nu = np.clip(raw, -p["max_log_nu"], p["max_log_nu"])
+        nu = np.exp(log_nu)
+        pihat1 = 1.0 / (1.0 / pi1 + nu)
+        pi1_new = pihat1 + p["pi_u"]
+        mu1_new = mu1 + p["pi_u"] / pi1_new * (u[:, t] - mu1)
+        delta1 = (1.0 / pi1_new + (mu1_new - mu1) ** 2) * pihat1 - 1.0
+        pihat2 = 1.0 / (1.0 / pi2 + p["theta"])
+        w1 = nu * pihat1
+        raw_pi2 = pihat2 + 0.5 * p["kappa"] ** 2 * w1 * (w1 + (2.0 * w1 - 1.0) * delta1)
+        pi2 = np.maximum(raw_pi2, p["min_pi2"])
+        raw_step = 0.5 * p["kappa"] * (w1 / pi2) * delta1
+        mu2 = mu2 + np.clip(raw_step, -p["max_mu2_step"], p["max_mu2_step"])
+        mu1, pi1 = mu1_new, pi1_new
+        fires["max_log_nu"] += int((raw != log_nu).sum())
+        fires["min_pi2"] += int((raw_pi2 < p["min_pi2"]).sum())
+        fires["max_mu2_step"] += int((np.abs(raw_step) > p["max_mu2_step"]).sum())
+        for name, value in zip(tracks, (mu1, pi1, mu2, pi2, delta1)):
+            tracks[name][:, t] = value
+    return (mu1, pi1, mu2, pi2), tracks, fires
+
+
 def hmm_inputs(R: int, T: int, K: int, seed: int):
     """Kernel inputs as the TPU kernel's tests make them: ``lik`` ~ U(0.1,
     1.1) (R, T, K), a row-stochastic ``A`` and a uniform ``pi``, float32."""
@@ -192,6 +303,21 @@ def hmm_bound(R: int, T: int, K: int, counts: bool) -> dict:
     nbytes = 4 * (2 * R * T * K + R + K * K + K + (R * K * K if counts else 0))
     ops = R * T * (4 * K * K + 9 * K + ((2 * K * K + 3 * K) if counts else 0))
     return _bound(nbytes, ops)
+
+
+def hgf_data(R: int, T: int, kind: str, seed: int):
+    """HGF input, float32 (R, T): ``"walk"`` is cumsum(0.1 normal), as the JAX
+    bench makes it; ``"noisy"`` is 10 normal, which makes the guards fire."""
+    rng = np.random.default_rng(seed)
+    if kind == "walk":
+        return np.cumsum(0.1 * rng.normal(size=(R, T)), axis=-1).astype(np.float32)
+    return (10.0 * rng.normal(size=(R, T))).astype(np.float32)
+
+
+def hgf_bound(R: int, T: int, n_tracks: int, track_bytes: int) -> dict:
+    """The least time of K4 on R x T: read u once, write the finals and the
+    tracks once; HGF_OPS_PER_STEP operations a replica-step."""
+    return _bound(4 * R * T + 16 * R + n_tracks * track_bytes * R * T, HGF_OPS_PER_STEP * R * T)
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -583,21 +709,195 @@ def phase_hmm_times(torch, HMM, kernels_hmm, card: str) -> dict:
     return result
 
 
+def phase_hgf_kernel(torch, kernels_hgf) -> float:
+    """K4 against its plain version on the card; returns the largest absolute
+    error over every case."""
+    worst = 0.0
+    for R, T, tracks, bf16, params, data in HGF_KERNEL_CASES:
+        u_np = hgf_data(R, T, data, seed=R + T)
+        u = torch.from_numpy(u_np).cuda()
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        kwargs = dict(params, tracks=tracks, track_dtype=dtype)
+        got = kernels_hgf.hgf_filter_fused(u, **kwargs)
+        torch.cuda.synchronize()
+        want = kernels_hgf.hgf_filter_fused_reference(u, **kwargs)
+        torch.cuda.synchronize()
+        case = f"hgf_filter {R}x{T} tracks={list(tracks)} {dtype}"
+        errs = {}
+        for field, g, w in zip(ALL5, got[0], want[0]):
+            errs[field] = check_close(f"{case} final {field}", g, w, HGF_TOL)
+        for field, g, w in zip(tracks, got[1], want[1]):
+            if g.dtype != dtype:
+                raise SmokeFailure(f"{case}: track {field} is {g.dtype}")
+            check = check_bf16 if bf16 else (lambda *a: check_close(*a, HGF_TOL))
+            errs[f"track {field}"] = check(f"{case} track {field}", g, w)
+        fires = numpy_hgf(u_np[:N_HGF], **params)[2]
+        if params is HGF_GUARDS and not all(fires.values()):
+            raise SmokeFailure(f"{case}: a guard never fired: {fires}")
+        emit(phase="hgf_kernel", shape=[R, T], tracks=list(tracks), track_dtype=str(dtype),
+             params=params, data=data, tol=HGF_TOL, max_abs_err=errs,
+             guard_fires_first_64=fires)
+        worst = max(worst, *errs.values())
+    return worst
+
+
+def run_hgf_main_path(torch, models, ops, parallel, device, R: int, T: int,
+                      chunk: int = HGF_CHUNK, seed: int = 0) -> list:
+    """Drive the port's HGF path once at ``R`` replicas x ``T`` steps on
+    ``device`` through its public entry points, and check every result.
+
+    ``HGF.filter`` by scan and by the kernel and ``ops.hgf_filter_fused`` are
+    held against the float64 numpy HGF on the first 64 replicas
+    (HGF_F64_TOL); ``stream_filter`` and ``StreamingSession`` over chunks of
+    ``chunk`` steps from host memory against the batch scan on the same
+    device (1e-5; the same float32 operations); ``BinaryHGF.filter`` on
+    binary outcomes against the same on the CPU (BINARY_TOL).  Returns the
+    checks.
+    """
+    u_np = hgf_data(R, T, "walk", seed)
+    rng = np.random.default_rng(seed + 1)
+    p = 1.0 / (1.0 + np.exp(-np.cumsum(0.3 * rng.normal(size=(R, T)), axis=-1)))
+    outcomes = (rng.random((R, T)) < p).astype(np.float32)
+
+    model = models.HGF()
+    u = torch.from_numpy(u_np).to(device)
+    runs = {f"HGF.filter {m}": model.filter(u, method=m) for m in ("scan", "fused")}
+    finals, values = ops.hgf_filter_fused(u)
+    runs["hgf_filter_fused"] = (finals, values)
+    chunks = [np.ascontiguousarray(u_np[:, i:i + chunk]) for i in range(0, T, chunk)]
+
+    def chunk_step(state, c):
+        return model.filter(c, state=state, tracks=())
+
+    streamed, stream_outs = parallel.stream_filter(
+        chunk_step, chunks, model.init_state((R,), device=device), device=device)
+    session = parallel.StreamingSession(
+        chunk_step, model.init_state((R,), device=device), device=device)
+    for c in chunks:
+        session.push(c)
+    session_final = session.flush()
+    binary = models.BinaryHGF().filter(torch.from_numpy(outcomes).to(device))
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+    checks = []
+    want_finals, want_tracks, _ = numpy_hgf(u_np[:N_HGF])
+    for name, (finals, traj) in runs.items():
+        if tuple(traj[0].shape) != (R, T) or not bool(torch.isfinite(finals[0]).all()):
+            raise SmokeFailure(f"{name}: mu1 not finite of shape ({R}, {T})")
+        errs = {field: check_close(f"{name} final {field}", g[:N_HGF], w, HGF_F64_TOL)
+                for field, g, w in zip(ALL5, finals, want_finals)}
+        errs.update({f"track {field}": check_close(
+            f"{name} track {field}", g[:N_HGF], want_tracks[field], HGF_F64_TOL)
+            for field, g in zip(ALL5, traj)})
+        checks.append({"path": name, "against": "float64 numpy HGF", "tol": HGF_F64_TOL,
+                       "max_abs_err": errs})
+
+    batch = runs["HGF.filter scan"][0]
+    for name, got, n_out in (("stream_filter", streamed, len(stream_outs)),
+                             ("StreamingSession", session_final, len(session.outputs))):
+        if n_out != len(chunks):
+            raise SmokeFailure(f"{name}: {n_out} outputs for {len(chunks)} chunks")
+        errs = {field: check_close(f"{name} {field}", g, w, 1e-5)
+                for field, g, w in zip(ALL5, got, batch)}
+        checks.append({"path": name, "against": "batch scan", "tol": 1e-5,
+                       "chunks": len(chunks), "max_abs_err": errs})
+
+    cpu_final, cpu_traj = models.BinaryHGF().filter(torch.from_numpy(outcomes))
+    errs = {field: check_close(f"BinaryHGF {field}", g, w, BINARY_TOL)
+            for field, g, w in zip(cpu_final._fields, binary[0], cpu_final)}
+    errs.update({f"track {field}": check_close(f"BinaryHGF track {field}", g, w, BINARY_TOL)
+                 for field, g, w in zip(cpu_traj._fields, binary[1], cpu_traj)})
+    checks.append({"path": "BinaryHGF.filter", "against": "port on cpu", "tol": BINARY_TOL,
+                   "max_abs_err": errs})
+    return checks
+
+
+def phase_hgf_main_path(torch, models, ops, parallel, kernels) -> int:
+    kernels.LAUNCHES["hgf_filter"] = 0
+    checks = run_hgf_main_path(torch, models, ops, parallel, "cuda", HGF_R, HGF_T)
+    launches = kernels.LAUNCHES["hgf_filter"]
+    for check in checks:
+        emit(phase="hgf_main_path", R=HGF_R, T=HGF_T, **check)
+    emit(phase="hgf_main_path", launches={"hgf_filter": launches})
+    # One launch by HGF.filter(method="fused"), one by the op.
+    if launches < 2:
+        raise SmokeFailure(f"the HGF main path launched hgf_filter {launches} times, not 2")
+    return launches
+
+
+def phase_hgf_times(torch, models, kernels_hgf, card: str) -> dict:
+    """K4, its plain version, the scan path and a matched-traffic probe, each
+    at the main path's width for each track set of HGF_CONFIGS, and the floor
+    probe; returns {config: {path: ms}}."""
+    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
+    R, T = HGF_R, HGF_T
+    u = torch.from_numpy(hgf_data(R, T, "walk", seed=2)).cuda()
+    model = models.HGF()
+    # bench.py's floor probe: one HGF step on every element at once, from a
+    # state made of the data (no serial dependence, no trajectory writes).
+    state = models.HGFState(u, 1.0 + u * u, 0.5 * u, 1.0 + u.abs())
+    floor_ms = device_ms(torch, lambda: model.step(state, u), flush, runs=5)
+    floor_call_ms = median_ms(torch, lambda: model.step(state, u), flush, runs=5, warmup=1)
+    emit(phase="hgf_times", R=R, T=T, path="floor probe", device_ms=floor_ms,
+         ms=floor_call_ms, card=card)
+
+    def paths(tracks, dtype):
+        def probe():
+            # Matched traffic: read u once, write the config's outputs once.
+            if not tracks:  # amax: the eviction's sum would hide its kernel from device_ms
+                return u.amax(-1)
+            out = torch.empty((R, T, len(tracks)), dtype=dtype, device="cuda")
+            return out.copy_(u.unsqueeze(-1).expand(R, T, len(tracks)))
+
+        kw = dict(tracks=tracks, track_dtype=dtype)
+        return {
+            "kernel": (lambda: kernels_hgf.hgf_filter_fused(u, **kw), 25, 3),
+            "plain": (lambda: kernels_hgf.hgf_filter_fused_reference(u, **kw), 3, 1),
+            "scan": (lambda: model.filter(u, tracks=tracks), 3, 1),
+            "probe": (probe, 25, 3),
+        }
+
+    result = {"floor probe device": floor_ms, "floor probe": floor_call_ms}
+    for config, (tracks, bf16) in HGF_CONFIGS.items():
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        timed = paths(tracks, dtype)
+        order = list(timed) + list(reversed(timed))  # each path twice, in turns
+        samples = {name: [] for name in timed}
+        for name in order:
+            fn, runs, warmup = timed[name]
+            samples[name].append(median_ms(torch, fn, flush, runs=runs, warmup=warmup))
+        ms = {name: statistics.mean(pair) for name, pair in samples.items()}
+        for name in ("kernel", "probe"):
+            ms[f"{name} device"] = device_ms(
+                torch, timed[name][0], flush, ("hgf_filter_kernel",) if name == "kernel" else None)
+        bound = hgf_bound(R, T, len(tracks), 2 if bf16 else 4)
+        for name, value in ms.items():
+            emit(phase="hgf_times", R=R, T=T, config=config, path=name, ms=value,
+                 ms_rounds=samples.get(name), obs_per_s=R * T / (value / 1e3) if value else None,
+                 **bound, card=card)
+        result[config] = ms
+    return result
+
+
 def main() -> None:
     import torch
 
     device = phase_device(torch)
     sys.path.insert(0, REPO)
-    from cortex_tpu_torch import _build, ops
+    from cortex_tpu_torch import _build, models, ops, parallel
     from cortex_tpu_torch.models import HMM, LGSSM
-    from cortex_tpu_torch.ops import kernels, kernels_hmm
+    from cortex_tpu_torch.ops import kernels, kernels_hgf, kernels_hmm
 
     phase_build(kernels, _build)
-    worst = {"lgssm_smooth": phase_kernel(torch, kernels), **phase_hmm_kernel(torch, kernels_hmm)}
+    worst = {"lgssm_smooth": phase_kernel(torch, kernels), **phase_hmm_kernel(torch, kernels_hmm),
+             "hgf_filter": phase_hgf_kernel(torch, kernels_hgf)}
     launches = {"lgssm_smooth": phase_main_path(torch, LGSSM, ops, kernels),
-                **phase_hmm_main_path(torch, HMM, ops, kernels)}
+                **phase_hmm_main_path(torch, HMM, ops, kernels),
+                "hgf_filter": phase_hgf_main_path(torch, models, ops, parallel, kernels)}
     times = phase_times(torch, LGSSM, ops, device["nvidia_smi"])
     hmm_times = phase_hmm_times(torch, HMM, kernels_hmm, device["nvidia_smi"])
+    hgf_times = phase_hgf_times(torch, models, kernels_hgf, device["nvidia_smi"])["all five f32"]
     hmm_source = "cortex_tpu_torch/csrc/hmm_forward_backward.cu"
     print(json.dumps({"kernels": [
         {
@@ -627,6 +927,19 @@ def main() -> None:
             "library_ms": None,  # no one PyTorch call computes a scaled forward-backward
         } for name, replaces in (("hmm_fb", "cortex_tpu/ops/pallas_hmm.py:158"),
                                  ("hmm_fb_counts", "cortex_tpu/ops/pallas_hmm.py:202"))),
+        {
+            "name": "hgf_filter",
+            "route": "cuda",
+            "source": "cortex_tpu_torch/csrc/hgf_filter.cu",
+            "replaces": "cortex_tpu/ops/pallas_hgf.py:349",
+            "launches": launches["hgf_filter"],
+            "max_abs_err": worst["hgf_filter"],
+            # The main path's call: all five tracks in float32.
+            "ms": hgf_times["kernel device"] or hgf_times["kernel"],
+            "plain_ms": hgf_times["plain"],
+            **hgf_bound(HGF_R, HGF_T, 5, 4),
+            "library_ms": None,  # no one PyTorch call computes an HGF filter
+        },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["name"], "count": torch.cuda.device_count(),

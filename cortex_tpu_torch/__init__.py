@@ -5,13 +5,16 @@ at the same path:
 
 - :mod:`cortex_tpu_torch.ops` — scalar-chain message passing (scan, matmul
   and associative-scan smoothers), discrete-chain forward-backward and
-  Viterbi, and the CUDA kernels written by hand for ``sm_90a`` (the fused
-  smoothing sweep, the scaled HMM forward-backward), each with a plain
-  PyTorch twin,
+  Viterbi, the HGF step, and the CUDA kernels written by hand for
+  ``sm_90a`` (the fused smoothing sweep, the scaled HMM forward-backward,
+  the HGF filter), each with a plain PyTorch twin,
 - :mod:`cortex_tpu_torch.dists` — exponential families (Dirichlet),
-- :mod:`cortex_tpu_torch.models` — model families (LGSSM, HMM),
-- :mod:`cortex_tpu_torch.convert` — carry parameters and operators across
-  from numpy.
+- :mod:`cortex_tpu_torch.models` — model families (LGSSM, HMM, HGF,
+  binary HGF) and the scalar fits,
+- :mod:`cortex_tpu_torch.parallel` — streaming with copies overlapped with
+  compute,
+- :mod:`cortex_tpu_torch.convert` — carry parameters, operators and states
+  across from numpy.
 
 It imports ``torch`` and never ``jax``.  CUDA kernels are built with
 ``nvcc`` at first use on a CUDA tensor, never at import.
@@ -20,7 +23,7 @@ It imports ``torch`` and never ``jax``.  CUDA kernels are built with
 __version__ = "0.1.0"
 
 # Submodules load lazily (PEP 562), as in the JAX package.
-_SUBMODULES = ("convert", "dists", "models", "ops")
+_SUBMODULES = ("convert", "dists", "models", "ops", "parallel")
 
 __all__ = ["__version__"] + list(_SUBMODULES)
 

@@ -11,6 +11,7 @@ from .chains import (
 )
 from .hmm import HMMPosterior, hmm_forward_backward, hmm_viterbi
 from .kernels import lgssm_smooth_fused, lgssm_smooth_fused_reference
+from .kernels_hgf import ALL_TRACKS, hgf_filter_fused, hgf_filter_fused_reference, hgf_update
 from .kernels_hmm import (
     hmm_forward_backward_counts_fused,
     hmm_forward_backward_counts_fused_reference,
@@ -35,4 +36,8 @@ __all__ = [
     "hmm_forward_backward_fused_reference",
     "hmm_forward_backward_counts_fused",
     "hmm_forward_backward_counts_fused_reference",
+    "ALL_TRACKS",
+    "hgf_update",
+    "hgf_filter_fused",
+    "hgf_filter_fused_reference",
 ]

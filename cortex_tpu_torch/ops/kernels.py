@@ -12,7 +12,8 @@ plain version,
 kernel (building it at first use) or raises.
 
 ``LAUNCHES`` counts each kernel's launches (this module's and those of
-:mod:`~cortex_tpu_torch.ops.kernels_hmm`), so that a run can show that its
+:mod:`~cortex_tpu_torch.ops.kernels_hmm` and
+:mod:`~cortex_tpu_torch.ops.kernels_hgf`), so that a run can show that its
 path went through the kernels.  :func:`_library` builds and binds them all.
 """
 
@@ -33,7 +34,7 @@ __all__ = [
     "sweep_coefficients",
 ]
 
-LAUNCHES = {"lgssm_smooth": 0, "hmm_fb": 0, "hmm_fb_counts": 0}
+LAUNCHES = {"lgssm_smooth": 0, "hmm_fb": 0, "hmm_fb_counts": 0, "hgf_filter": 0}
 
 # Shared memory one block may opt into on Hopper (227 KB), and the replica
 # tiles the shared-memory path tries, largest first.
@@ -165,6 +166,9 @@ def _library() -> ctypes.CDLL:
     lib.hmm_forward_backward_f32.restype = i32
     lib.hmm_forward_backward_counts_f32.argtypes = [ptr] * 7 + [i64, i32, i32, i32, i32, ptr]
     lib.hmm_forward_backward_counts_f32.restype = i32
+    # u, finals, five track pointers, R, T, bf16, nine float constants, stream
+    lib.hgf_filter_f32.argtypes = [ptr] * 7 + [i64, i32, i32] + [f32] * 9 + [ptr]
+    lib.hgf_filter_f32.restype = i32
     return lib
 
 

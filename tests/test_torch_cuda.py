@@ -13,7 +13,8 @@ float32, and differ only where the compiler fuses a multiply and an add:
 The HMM kernel sums over states in another order than its plain version and
 sums the pairwise counts inside its backward pass: gamma atol 1e-5 and
 log-evidence rtol 1e-5 (the bars of tests/test_pallas_kernels.py), xi_sum
-rtol = atol = 1e-4.
+rtol = atol = 1e-4.  The HGF kernel rounds each operation as its plain
+version does: 1e-5 (tests/test_hgf.py's bar), bf16 tracks within one ulp.
 """
 
 import importlib.util
@@ -23,9 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from cortex_tpu_torch import ops
-from cortex_tpu_torch.models import HMM, LGSSM
-from cortex_tpu_torch.ops import kernels, kernels_hmm
+from cortex_tpu_torch import models, ops, parallel
+from cortex_tpu_torch.models import HGF, HMM, LGSSM
+from cortex_tpu_torch.ops import kernels, kernels_hgf, kernels_hmm
+from cortex_tpu_torch.parallel import StreamingSession, stream_filter
 
 REPO = Path(__file__).resolve().parents[1]
 NONDEFAULT = dict(A=0.9, Q=0.5, H=2.0, R=0.7)
@@ -179,3 +181,135 @@ def test_chip_smoke_hmm_main_path_on_card(cuda):
     assert kernels.LAUNCHES["hmm_fb"] == before["hmm_fb"] + 1
     assert kernels.LAUNCHES["hmm_fb_counts"] == before["hmm_fb_counts"] + 1 + smoke.HMM_ITERS
     assert any(c["path"] == "pooled VMP fused" for c in checks)
+
+
+HGF_NONDEFAULT = dict(kappa=1.4, omega=-3.0, theta=0.2, pi_u=4.0, max_log_nu=8.0, min_pi2=0.05,
+                      max_mu2_step=2.0)
+HGF_GUARDS = dict(kappa=2.0, omega=-1.0, theta=0.5, pi_u=1000.0, max_log_nu=1.5, min_pi2=0.3,
+                  max_mu2_step=0.1)
+
+
+def _hgf_u(seed, shape, device, noisy=False):
+    rng = np.random.default_rng(seed)
+    u = 10.0 * rng.normal(size=shape) if noisy else 0.1 * rng.normal(size=shape).cumsum(-1)
+    return torch.from_numpy(u.astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape, tracks, bf16, params",
+    [
+        ((300, 100), ops.ALL_TRACKS, False, {}),  # ragged last block and chunk
+        ((65, 33), ("mu2", "mu1"), True, {}),
+        ((129, 1), (), False, {}),
+        ((3, 5000), ops.ALL_TRACKS, False, HGF_NONDEFAULT),  # a T the TPU kernel refused
+        ((200, 64), ops.ALL_TRACKS, True, HGF_GUARDS),  # every guard fires
+    ],
+)
+def test_hgf_kernel_matches_plain_version(cuda, shape, tracks, bf16, params):
+    """Finals and float32 tracks within 1e-5 (tests/test_hgf.py's bar), bf16
+    tracks within one bf16 ulp (rtol 2^-7); on an H100 they were equal."""
+    u = _hgf_u(sum(shape), shape, cuda, noisy=params is HGF_GUARDS)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    launches = kernels.LAUNCHES["hgf_filter"]
+    got = kernels_hgf.hgf_filter_fused(u, **params, tracks=tracks, track_dtype=dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hgf_filter"] == launches + 1
+    want = kernels_hgf.hgf_filter_fused_reference(u, **params, tracks=tracks, track_dtype=dtype)
+    assert len(got[1]) == len(tracks)
+    for g, w in zip(got[0], want[0]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got[1], want[1]):
+        assert g.dtype == dtype and g.shape == shape
+        torch.testing.assert_close(g, w, rtol=2**-7 if bf16 else 1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hgf_kernel_rejects_what_it_does_not_take_and_counts_nothing(cuda):
+    u = _hgf_u(1, (40, 64), cuda)
+    launches = kernels.LAUNCHES["hgf_filter"]
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels_hgf.hgf_filter_fused(u.t())
+    with pytest.raises(ValueError, match="unknown tracks"):
+        kernels_hgf.hgf_filter_fused(u, tracks=("mu1", "bogus"))
+    with pytest.raises(ValueError, match="scan"):
+        kernels_hgf.hgf_filter_fused(u, omega=torch.tensor(-2.0, requires_grad=True))
+    assert kernels.LAUNCHES["hgf_filter"] == launches
+
+
+@pytest.mark.cuda
+def test_hgf_fused_path_launches_the_kernel(cuda):
+    u = _hgf_u(2, (500, 80), cuda)
+    model = HGF(**HGF_NONDEFAULT)
+    launches = kernels.LAUNCHES["hgf_filter"]
+    final, traj = model.filter(u, method="fused", tracks=("pi2", "mu1"))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hgf_filter"] == launches + 1
+    scan_final, scan_traj = model.filter(u, tracks=("pi2", "mu1"))
+    for g, w in zip(tuple(final) + (traj.pi2, traj.mu1), tuple(scan_final) +
+                    (scan_traj.pi2, scan_traj.mu1)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    assert traj.mu2 is None
+
+
+class _FailingLibrary:
+    """Stands in for the built library: every HGF launch is refused."""
+
+    @staticmethod
+    def hgf_filter_f32(*args):
+        return 9  # cudaErrorInvalidConfiguration
+
+    @staticmethod
+    def lgssm_cuda_error_string(err):
+        return b"invalid configuration argument"
+
+
+@pytest.mark.cuda
+def test_hgf_failures_on_the_cuda_path_are_not_swallowed(cuda, monkeypatch):
+    """A refused launch or a failed build raises; nothing falls back to the
+    plain version, and nothing is counted."""
+    u = _hgf_u(3, (10, 20), cuda)
+    launches = kernels.LAUNCHES["hgf_filter"]
+    monkeypatch.setattr(kernels_hgf, "_library", lambda: _FailingLibrary)
+    with pytest.raises(RuntimeError, match="invalid configuration"):
+        HGF().filter(u, method="fused")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc failed building the kernels")
+
+    monkeypatch.setattr(kernels_hgf, "_library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernels_hgf.hgf_filter_fused(u)
+    assert kernels.LAUNCHES["hgf_filter"] == launches
+
+
+@pytest.mark.cuda
+def test_streaming_copies_on_a_side_stream_match_the_batch_filter(cuda):
+    u = _hgf_u(4, (64, 96), "cpu").numpy()
+    model = HGF()
+    chunks = [np.ascontiguousarray(u[:, i:i + 16]) for i in range(0, 96, 16)]
+
+    def chunk_step(state, chunk):
+        assert chunk.is_cuda
+        return model.filter(chunk, state=state, tracks=())
+
+    final, outs = stream_filter(chunk_step, chunks, model.init_state((64,)))
+    session = StreamingSession(chunk_step, model.init_state((64,)))
+    for chunk in chunks:
+        session.push(chunk)
+    want, _ = model.filter(torch.from_numpy(u).to(cuda), tracks=())
+    for got in (final, session.flush()):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert len(outs) == len(session.outputs) == 6
+
+
+@pytest.mark.cuda
+def test_chip_smoke_hgf_main_path_on_card(cuda):
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    launches = kernels.LAUNCHES["hgf_filter"]
+    checks = smoke.run_hgf_main_path(torch, models, ops, parallel, "cuda", R=300, T=64, chunk=16)
+    assert kernels.LAUNCHES["hgf_filter"] == launches + 2
+    assert any(c["path"] == "HGF.filter fused" for c in checks)
