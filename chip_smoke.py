@@ -13,7 +13,8 @@ port's own plain versions.  Phases, each printing JSON lines:
    ``nvcc`` (into the git-ignored ``build/``) and prints the seconds.
 3. ``kernel``: the fused LGSSM sweep (K1) against its plain version on the
    card, at the main path's shapes, at every shared-memory tile, at T=3072
-   (the device-memory path) and at a tiny edge case.
+   (the device-memory path), at the edges of its time segments and at a
+   tiny edge case.
 4. ``hmm_kernel``: the HMM forward-backward kernel, without (K2) and with
    (K3) the pairwise counts, against their plain versions on the card, on
    both of its paths (small K, any K), alphas in shared and device memory.
@@ -66,17 +67,26 @@ R_MAIN = 10_000
 R_TIMES = (10_000, 100_000)
 N_RTS = 64  # replicas held against the float64 RTS
 NONDEFAULT = {"A": 0.9, "Q": 0.5, "H": 2.0, "R": 0.7}
+GROWING = {"A": 1.3, "Q": 0.2, "H": 0.5, "R": 1.5}  # backward gain products grow
 
 # (n_replicas, T), parameters, rtol = atol.  1e-4 and 1e-3 are the bars of the
 # TPU kernel's own tests (tests/test_pallas_kernels.py).
 KERNEL_CASES = [
     ((10_000, 100), {}, 1e-4),
     ((10_001, 100), NONDEFAULT, 1e-3),  # ragged last block
-    ((2_049, 200), {}, 1e-4),  # 64-replica tile
-    ((2_049, 500), NONDEFAULT, 1e-3),  # 32-replica tile
+    ((2_049, 200), {}, 1e-4),
+    ((2_049, 500), NONDEFAULT, 1e-3),
     ((1_024, 3_072), {}, 1e-4),  # the TPU kernel's longest T: device-memory path
     ((3, 1), {}, 1e-4),
     ((100_000, 100), {}, 1e-4),
+    # Segment edges: T not a multiple of the 4 segments (nor of 4: no bulk
+    # copies), T below 4 (an empty segment), one replica of one step, growing
+    # gain products, the 8-replica tile.
+    ((10_000, 101), NONDEFAULT, 1e-3),
+    ((64, 3), {}, 1e-4),
+    ((1, 1), {}, 1e-4),
+    ((4_001, 200), GROWING, 1e-3),
+    ((257, 1_600), {}, 1e-4),
 ]
 
 # The HMM path at the width of the JAX bench's ladder.hmm (bench.py:600-611).
@@ -112,7 +122,9 @@ HGF_GUARDS = {"kappa": 2.0, "omega": -1.0, "theta": 0.5, "pi_u": 1000.0,
 # (R, T, tracks, bf16 tracks, parameters, data): the main path's shape with all
 # five tracks, none, and two reordered in bf16; ragged R; a ragged block and
 # chunk; one step; T that the TPU kernel refused for VMEM (above 2,500 with
-# five tracks, above 10,837 with none); non-default parameters; every guard.
+# five tracks, above 10,837 with none); non-default parameters; every guard;
+# the track write-out's edges: last chunks of 4 (float32) and 8 (bf16) steps
+# in ragged blocks, and T off the 16-byte vector (u read 4 bytes at a time).
 HGF_KERNEL_CASES = [
     (HGF_R, HGF_T, ALL5, False, {}, "walk"),
     (HGF_R, HGF_T, (), False, {}, "walk"),
@@ -124,6 +136,10 @@ HGF_KERNEL_CASES = [
     (16, 16_384, (), False, {}, "walk"),
     (4096, 256, ("delta1", "pi2", "pi1"), False, HGF_NONDEFAULT, "walk"),
     (4096, 256, ALL5, True, HGF_GUARDS, "noisy"),
+    (1000, 260, ALL5, False, {}, "walk"),
+    (1000, 264, ("delta1", "mu1"), True, {}, "walk"),
+    (999, 101, ALL5, False, HGF_NONDEFAULT, "walk"),
+    (999, 100, ("pi2",), True, {}, "walk"),
 ]
 # K4 against its plain version: finals and float32 tracks within 1e-5 (atol
 # = rtol; the bar of tests/test_hgf.py), bf16 tracks within one bf16 ulp.
@@ -575,7 +591,7 @@ def median_ms(torch, fn, flush, runs: int = 25, warmup: int = 3) -> float:
 # Names of the device kernels that each timed path launches, as the profiler
 # reports them.
 DEVICE_KERNELS = {
-    "kernel": ("smooth_smem_kernel", "smooth_global_kernel"),
+    "kernel": ("smooth_segments_kernel", "smooth_global_kernel"),
     "hmm_fb": ("fb_small_kernel", "fb_general_kernel"),
     "hmm_fb_counts": ("fb_small_kernel", "fb_general_kernel"),
     "probe": ("elementwise_kernel",),
@@ -608,11 +624,14 @@ def device_ms(torch, fn, flush, names=None, runs: int = 25):
     fn()
     torch.cuda.synchronize()
     evicting = set(_device_us(torch, flush.sum, 1))
-    total_us = 0.0
-    for key, us in _device_us(torch, lambda: (flush.sum(), fn()), runs).items():
-        if (any(name in key for name in names) if names else key not in evicting):
-            total_us += us
-    return total_us / runs / 1e3 if total_us > 0 else None
+    for _ in range(2):  # a profile now and then holds no kernel record: one more
+        total_us = 0.0
+        for key, us in _device_us(torch, lambda: (flush.sum(), fn()), runs).items():
+            if (any(name in key for name in names) if names else key not in evicting):
+                total_us += us
+        if total_us > 0:
+            return total_us / runs / 1e3
+    return None
 
 
 def phase_times(torch, LGSSM, ops, card: str) -> dict:

@@ -6,7 +6,9 @@ scalar-LGSSM BP sweep (forward messages, backward messages and marginals) in
 one kernel, ``csrc/lgssm_smooth.cu``, which reads ``y`` once and writes the
 marginals once.  The precisions of the sweep do not depend on ``y``, so the
 kernel takes them precomputed (:func:`sweep_coefficients`) and does one
-multiply-add per replica-step each way.  On a CPU tensor the wrapper runs the
+multiply-add per replica-step each way.  It splits each replica's chain into
+:data:`SEGMENTS` time segments, one thread each, joined by the products of
+their gains (also precomputed).  On a CPU tensor the wrapper runs the
 plain version,
 :func:`lgssm_smooth_fused_reference`; on a CUDA tensor it launches the
 kernel (building it at first use) or raises.
@@ -36,16 +38,34 @@ __all__ = [
 
 LAUNCHES = {"lgssm_smooth": 0, "hmm_fb": 0, "hmm_fb_counts": 0, "hgf_filter": 0}
 
-# Shared memory one block may opt into on Hopper (227 KB), and the replica
-# tiles the shared-memory path tries, largest first.
+# Shared memory one block may opt into on Hopper (227 KB), the replica tiles
+# the shared-memory path tries, largest first, and the time segments (threads)
+# of each replica there: a warp holds 8 replicas x 4 segments.
 SMEM_LIMIT_BYTES = 232_448
-SMEM_TILES = (64, 32)
+SMEM_TILES = (16, 8)
+SEGMENTS = 4
+
+
+def row_pitch(T: int) -> int:
+    """Floats per replica row in shared memory: ``T`` rounded up to a multiple
+    of 4 (16-byte rows for the bulk copies) that is 4 mod 8, so the eight
+    replicas of a warp start on eight distinct 4-bank groups."""
+    pitch = -(-T // 4) * 4
+    return pitch + 4 if pitch % 8 == 0 else pitch
+
+
+def segment_length(T: int, segments: int = SEGMENTS) -> int:
+    """Steps per time segment: ``ceil(T / segments)``, made odd so that the
+    segments of a replica start on banks of distinct parity mod 4.  The last
+    segments may be shorter or empty."""
+    return -(-T // segments) | 1
 
 
 def smem_bytes(tile: int, T: int) -> int:
-    """Shared memory of one block of the kernel's shared-memory path: the
-    three coefficient rows and two ``(tile, T | 1)`` float32 buffers."""
-    return 4 * (3 * T + 2 * tile * (T | 1))
+    """Shared memory of one block of the kernel's shared-memory path: its
+    mbarrier (16 bytes), two ``(tile, row_pitch(T))`` float32 buffers and the
+    five coefficient rows."""
+    return 16 + 4 * (2 * tile * row_pitch(T) + 5 * T)
 
 
 def smem_tile(T: int) -> int:
@@ -121,17 +141,23 @@ def lgssm_smooth_fused_reference(
 
 @functools.lru_cache(maxsize=64)
 def sweep_coefficients(
-    A: float, Q: float, H: float, R: float, T: int, device
+    A: float, Q: float, H: float, R: float, T: int, device, segment: int | None = None
 ) -> torch.Tensor:
-    """The data-independent part of the sweep, ``(3, T)`` float32 on ``device``:
-    forward gains, backward gains and marginal variances.
+    """The data-independent part of the sweep, ``(5, T)`` float32 on ``device``:
+    forward gains, backward gains, marginal variances, and the products of
+    the gains within each time segment of ``segment`` steps (default ``T``).
 
     Every precision of the 1/w recursion depends on A, Q, H, R and T only, so
     it runs once here, in float64, with the plain version's formulas:
     ``xi_f[t] = gf[t] * xi_c[t-1]`` (``gf[0] = 0``), ``xi_b[t] = gb[t] *
     xi_bc[t+1]`` (``gb[T-1] = 0``) and ``var[t] = 1 / w_m[t]``, where
     ``xi_c`` and ``xi_bc`` are the information of the filtered belief and of
-    the observation times the backward message.  Cached per arguments.
+    the observation times the backward message.  Both are linear in y, so in
+    a segment ``[a, b)`` entered with the true ``xi_c[a-1] = c`` and left
+    with ``xi_bc[b] = d``, the true values are those of a run from zero
+    carries plus ``c * pf[t]`` and ``d * pb[t]``, where ``pf[t] = gf[a] ...
+    gf[t]`` and ``pb[t] = gb[t] ... gb[b-1]``: rows 3 and 4.  Cached per
+    arguments.
     """
     w_obs = (H * H) / R
     gf, gb, w_f = [0.0] * T, [0.0] * T, [0.0] * T
@@ -148,14 +174,27 @@ def sweep_coefficients(
         gb[t] = w_msg / (A * w_b)
         var[t] = 1.0 / (w_obs + w_f[t] + w_msg)
         w_b = w_obs + w_msg
-    return torch.tensor([gf, gb, var], dtype=torch.float32, device=device)
+    segment = T if segment is None else segment
+    pf, pb = [0.0] * T, [0.0] * T
+    for a in range(0, T, segment):
+        b = min(a + segment, T)
+        prod = 1.0
+        for t in range(a, b):
+            prod *= gf[t]
+            pf[t] = prod
+        prod = 1.0
+        for t in range(b - 1, a - 1, -1):
+            prod *= gb[t]
+            pb[t] = prod
+    return torch.tensor([gf, gb, var, pf, pb], dtype=torch.float32, device=device)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load()
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.lgssm_smooth_smem_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, f32, ptr]
+    # y, mean, var, coef, n, T, tile, pitch, segment, H / R, stream
+    lib.lgssm_smooth_smem_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, f32, ptr]
     lib.lgssm_smooth_smem_f32.restype = i32
     lib.lgssm_smooth_global_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, f32, ptr]
     lib.lgssm_smooth_global_f32.restype = i32
@@ -194,7 +233,8 @@ def lgssm_smooth_fused(
         raise ValueError("y must be contiguous")
     lib = _library()
     n, T = y.shape
-    coef = sweep_coefficients(float(A), float(Q), float(H), float(R), T, y.device)
+    seg = segment_length(T)
+    coef = sweep_coefficients(float(A), float(Q), float(H), float(R), T, y.device, seg)
     mean = torch.empty_like(y)
     var = torch.empty_like(y)
     tile = smem_tile(T)
@@ -203,7 +243,7 @@ def lgssm_smooth_fused(
         if tile:
             err = lib.lgssm_smooth_smem_f32(
                 y.data_ptr(), mean.data_ptr(), var.data_ptr(), coef.data_ptr(),
-                n, T, tile, H / R, stream,
+                n, T, tile, row_pitch(T), seg, H / R, stream,
             )
         else:
             scratch = torch.empty((T, n), dtype=y.dtype, device=y.device)

@@ -9,8 +9,8 @@ or launch raises) and counts the launch in ``kernels.LAUNCHES["hgf_filter"]``;
 on a CPU tensor it runs the plain version, :func:`hgf_filter_fused_reference`.
 
 The TPU-only arguments ``tile`` and ``interpret`` are gone, and so is the
-VMEM budget: the kernel stages ``u`` and the tracks through shared memory in
-chunks of steps, so it takes any T.
+VMEM budget: the kernel prefetches ``u`` into registers and writes the tracks
+out through shared memory in chunks of steps, so it takes any T.
 
 :func:`hgf_update` is the one HGF step, shared by the plain version and
 :meth:`cortex_tpu_torch.models.HGF.step`.  Its divisions are written as the

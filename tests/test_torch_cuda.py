@@ -52,9 +52,13 @@ def _walk(seed, shape, device):
     [
         ((300, 100), {}, 1e-4),  # shared-memory path, ragged last block
         ((129, 151), NONDEFAULT, 1e-3),
-        ((65, 300), {}, 1e-4),  # 32-replica tile
+        ((65, 300), {}, 1e-4),
         ((77, 3072), NONDEFAULT, 1e-3),  # device-memory path
         ((1, 1), {}, 1e-4),
+        ((10_000, 101), NONDEFAULT, 1e-3),  # T not a multiple of the 4 segments
+        ((64, 3), {}, 1e-4),  # T below the 4 segments: one is empty
+        ((33, 1_600), {}, 1e-4),  # 8-replica tile, ragged
+        ((500, 200), dict(A=1.3, Q=0.2, H=0.5, R=1.5), 1e-3),  # growing gain products
     ],
 )
 def test_kernel_matches_plain_version(cuda, shape, params, tol):
@@ -204,6 +208,8 @@ def _hgf_u(seed, shape, device, noisy=False):
         ((129, 1), (), False, {}),
         ((3, 5000), ops.ALL_TRACKS, False, HGF_NONDEFAULT),  # a T the TPU kernel refused
         ((200, 64), ops.ALL_TRACKS, True, HGF_GUARDS),  # every guard fires
+        ((301, 101), ops.ALL_TRACKS, False, {}),  # T off the 16-byte vector: u read by 4 bytes
+        ((64, 264), ("pi1", "delta1"), True, {}),  # bf16 tracks, last chunk of 8
     ],
 )
 def test_hgf_kernel_matches_plain_version(cuda, shape, tracks, bf16, params):

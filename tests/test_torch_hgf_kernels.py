@@ -162,6 +162,31 @@ def test_kernel_arithmetic_matches_plain_step_bit_for_bit(params):
             np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _bar_ratio(T):
+    """Largest |float32 - float64| / (1e-5 + 1e-5 |float64|) over every state
+    and delta1 of T steps of the plain step on 64 walk replicas."""
+    u = torch.from_numpy(_walk(4, (64, T)))
+    lo = [torch.zeros(64), torch.ones(64)] * 2
+    hi = [a.double() for a in lo]
+    worst = 0.0
+    for t in range(T):
+        *lo, d_lo = kernels_hgf.hgf_update(*lo, u[:, t], **DEFAULTS)
+        *hi, d_hi = kernels_hgf.hgf_update(*hi, u[:, t].double(), **DEFAULTS)
+        for a, b in zip(lo + [d_lo], hi + [d_hi]):
+            worst = max(worst, float(((a.double() - b).abs() / (1e-5 + 1e-5 * b.abs())).max()))
+    return worst
+
+
+def test_a_rounding_difference_outgrows_the_bar_at_long_T():
+    """Why K4 rounds every operation as its plain version does: the filter
+    carries a rounding difference forward and grows it.  The same step in
+    float64 stays within 1e-5 (atol = rtol) of the float32 one over 512 steps
+    but not over 4,096, so a kernel that rounded otherwise (FMAs, approximate
+    reciprocals) could not be held to the plain version at that bar on the
+    long-T cases (T = 4,096 and 16,384 in chip_smoke.py)."""
+    assert _bar_ratio(512) < 1.0 < _bar_ratio(4096)
+
+
 def test_wrapper_takes_plain_path_on_cpu_without_counting():
     u = torch.from_numpy(_walk(1, (7, 11)))
     before = dict(kernels.LAUNCHES)

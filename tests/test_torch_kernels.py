@@ -83,49 +83,107 @@ def test_wrapper_rejects_zero_transition():
 
 
 @pytest.mark.parametrize(
-    "T, tile", [(1, 64), (100, 64), (443, 64), (444, 32), (867, 32), (868, 0), (3072, 0)]
+    "T, tile",
+    [(1, 16), (100, 16), (443, 16), (444, 16), (867, 16), (868, 16), (1564, 16), (1565, 8),
+     (2764, 8), (2765, 0), (3072, 0)],
 )
 def test_smem_tile_fits_hopper_shared_memory(T, tile):
+    """The largest tile whose block fits in 227 KB; 0 (device memory) past it."""
     assert kernels.smem_tile(T) == tile
+    for larger in kernels.SMEM_TILES:
+        if larger > tile:
+            assert kernels.smem_bytes(larger, T) > kernels.SMEM_LIMIT_BYTES
     if tile:
         assert kernels.smem_bytes(tile, T) <= kernels.SMEM_LIMIT_BYTES
+        assert tile % 8 == 0  # whole warps of 8 replicas x 4 segments
+        assert kernels.row_pitch(T) >= T and kernels.row_pitch(T) % 4 == 0
 
 
-def _gain_form_sweep(y, coef, h_over_r):
-    """The CUDA kernel's arithmetic (``sweep`` in csrc/lgssm_smooth.cu), in
-    float32 torch ops, vectorized over replicas."""
-    gf, gb, var = coef
+@pytest.mark.parametrize("T", [1, 3, 100, 101, 128, 443, 867, 1564])
+def test_segment_layout_is_bank_conflict_free(T):
+    """A warp is 8 replicas x 4 segments; at every step of their segments its
+    32 lanes read 32 distinct shared-memory banks."""
+    P, L = kernels.row_pitch(T), kernels.segment_length(T)
+    assert P % 8 == 4 and L % 2 == 1 and kernels.SEGMENTS * L >= T
+    for k in range(min(L, 8)):
+        banks = {(r * P + s * L + k) % 32 for r in range(8) for s in range(kernels.SEGMENTS)}
+        assert len(banks) == 32
+
+
+def _segmented_sweep(y, coef, h_over_r, L, segments):
+    """The CUDA kernel's arithmetic (``smooth_segments_kernel`` in
+    csrc/lgssm_smooth.cu) in float32 torch ops, vectorized over replicas:
+    each segment's local forward and backward passes from zero carries, the
+    carries passed across the segments, then the ``carry * product`` fix-up.
+    With one segment it is the device-memory path's ``sweep``."""
+    gf, gb, var, pf, pb = coef
     n, T = y.shape
-    xf = torch.zeros_like(y)
+    obs = h_over_r * y
+    part = torch.empty_like(y)
+    bounds = [(min(s * L, T), min(s * L + L, T)) for s in range(segments)]
+    ends_f, ends_b = [], []  # local xi_c at the last step, local xi_bc at the first
+    for a, b in bounds:
+        xf = torch.zeros_like(y[:, :1].squeeze(1))
+        xi = torch.zeros_like(xf)
+        fwd = []
+        for t in range(a, b):
+            fwd.append(gf[t] * xi)
+            xi = gf[t] * xi + obs[:, t]
+        xb = torch.zeros_like(xf)
+        for t in range(b - 1, a - 1, -1):
+            part[:, t] = obs[:, t] + fwd[t - a] + gb[t] * xb
+            xb = gb[t] * xb + obs[:, t]
+        ends_f.append(xi)
+        ends_b.append(xb)
+    c = [torch.zeros(n)] * segments  # true xi_c entering each segment
+    d = [torch.zeros(n)] * segments  # true xi_bc leaving each segment
+    for s in range(1, segments):
+        a, b = bounds[s - 1]
+        c[s] = ends_f[s - 1] + c[s - 1] * (pf[b - 1] if b > a else 1.0)
+    for s in range(segments - 2, -1, -1):
+        a, b = bounds[s + 1]
+        d[s] = ends_b[s + 1] + d[s + 1] * (pb[a] if b > a else 1.0)
     mean = torch.empty_like(y)
-    xi = h_over_r * y[:, 0]
-    for t in range(1, T):
-        xf[:, t] = gf[t] * xi
-        xi = xf[:, t] + h_over_r * y[:, t]
-    xi_b = h_over_r * y[:, T - 1]
-    mean[:, T - 1] = (xi_b + xf[:, T - 1]) * var[T - 1]
-    for t in range(T - 2, -1, -1):
-        msg = gb[t] * xi_b
-        obs = h_over_r * y[:, t]
-        mean[:, t] = (obs + xf[:, t] + msg) * var[t]
-        xi_b = obs + msg
+    for s, (a, b) in enumerate(bounds):
+        for t in range(a, b):
+            mean[:, t] = (part[:, t] + c[s] * pf[t] + d[s] * pb[t]) * var[t]
     return mean, var.expand(n, T)
 
 
+@pytest.mark.parametrize("segments", [1, 4, 8])
 @pytest.mark.parametrize("params", [{}, dict(A=0.9, Q=0.5, H=2.0, R=0.7),
                                     dict(A=1.3, Q=0.2, H=0.5, R=1.5)])
-@pytest.mark.parametrize("T", [1, 2, 40, 3072])
-def test_kernel_arithmetic_matches_plain_version(params, T):
-    """The kernel's gain form with :func:`sweep_coefficients` against the 1/w
-    recursion of the plain version: one float32 sweep rounded two ways."""
+@pytest.mark.parametrize("T", [1, 2, 3, 40, 101, 3072])
+def test_kernel_arithmetic_matches_plain_version(params, T, segments):
+    """The kernel's segmented gain form with :func:`sweep_coefficients`
+    against the 1/w recursion of the plain version: one float32 sweep
+    rounded two ways.  T < segments leaves segments empty; A = 1.3 makes
+    the products of the backward gains grow."""
     p = {"A": 1.0, "Q": 1.0, "H": 1.0, "R": 1.0, **params}
     y = torch.from_numpy(_walk(T, (5, T)))
-    coef = kernels.sweep_coefficients(p["A"], p["Q"], p["H"], p["R"], T, torch.device("cpu"))
-    assert coef.shape == (3, T) and coef.dtype == torch.float32
-    mean, var = _gain_form_sweep(y, coef, p["H"] / p["R"])
+    L = kernels.segment_length(T, segments)
+    coef = kernels.sweep_coefficients(p["A"], p["Q"], p["H"], p["R"], T, torch.device("cpu"), L)
+    mean, var = _segmented_sweep(y, coef, p["H"] / p["R"], L, segments)
     ref = kernels.lgssm_smooth_fused_reference(y, **p)
     torch.testing.assert_close(mean, ref.mean, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(var, ref.variance, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T, segment", [(1, 1), (7, 3), (100, 25), (101, 27), (40, 40)])
+def test_sweep_coefficients_rows(T, segment):
+    """Five float32 rows: the gains and variances, which do not depend on the
+    segments, and the products of the gains within each segment."""
+    coef = kernels.sweep_coefficients(0.9, 0.5, 2.0, 0.7, T, torch.device("cpu"), segment)
+    assert coef.shape == (5, T) and coef.dtype == torch.float32
+    whole = kernels.sweep_coefficients(0.9, 0.5, 2.0, 0.7, T, torch.device("cpu"))
+    assert torch.equal(coef[:3], whole[:3])
+    gf, gb, _, pf, pb = coef.double()
+    for a in range(0, T, segment):
+        b = min(a + segment, T)
+        torch.testing.assert_close(pf[a:b], torch.cumprod(gf[a:b], 0), rtol=1e-6, atol=0)
+        torch.testing.assert_close(pb[a:b], torch.cumprod(gb[a:b].flip(0), 0).flip(0),
+                                   rtol=1e-6, atol=0)
+    assert gf[0] == 0 and gb[T - 1] == 0
 
 
 def test_build_command_targets_sm90a_and_only_package_sources():

@@ -207,7 +207,8 @@ def _imported_roots(path):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    files = sorted((REPO / "cortex_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "cortex_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                                  REPO / "kernel_probe.py"]
     assert len(files) > 5
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "cortex_tpu"}
