@@ -17,7 +17,10 @@ port's own plain versions.  Phases, each printing JSON lines:
    tiny edge case.
 4. ``hmm_kernel``: the HMM forward-backward kernel, without (K2) and with
    (K3) the pairwise counts, against their plain versions on the card, on
-   both of its paths (small K, any K), alphas in shared and device memory.
+   each of its paths (the pair path: a forward and a backward thread a
+   replica; a lane group a replica; a block a replica), alphas in shared and
+   device memory, at the pair path's edges (every K from 1 to 9, T about the
+   chains' meeting point, R past a block, the longest rows that fit).
 5. ``main_path``: ``LGSSM`` at 10,000 replicas x T=100 through every
    smoother and ``ops.lgssm_smooth_fused``, against the float64 RTS; filter,
    log-evidence and NaN gaps against the port's CPU run; K1's launch count
@@ -93,13 +96,20 @@ KERNEL_CASES = [
 HMM_R, HMM_T, HMM_K, HMM_M, HMM_ITERS = 4096, 64, 4, 8, 4
 HMM_R_TIMES = (4096, 65_536)
 N_FB = 64  # replicas held against the float64 forward-backward
-# (R, T, K): the main path's shape and a ragged R; each small-K lane group
-# (1, 2, 4 with K=3, 16, 32); the general path (K=64, 200); one step; 16x
-# the main path's replicas; alphas through device memory on both paths.
+# (R, T, K): the main path's shape and a ragged R; the lane-group path (16, 32
+# lanes) and the general path (K=64, 200); one step; 16x the main path's
+# replicas; the lane groups' and the general path's alphas through device
+# memory.  Then the pair path's edges: every K from 1 to 9 (9: lane groups) at
+# R=33, one past a block; T = 1, 2 and 3 about the chains' meeting point, and
+# 15, 17, 33 odd; T * K off a multiple of 4 (the copies 4 bytes wide).
+# phase_hmm_kernel adds, for K=4 and 8, the longest T whose rows fit the pair
+# path and the next, which takes the lane groups.
 HMM_KERNEL_CASES = [
     (4096, 64, 4), (4097, 64, 4), (1000, 64, 2), (257, 100, 3), (64, 64, 16),
     (40, 50, 32), (100, 30, 1), (33, 40, 64), (17, 20, 200), (5, 1, 4),
     (65_536, 64, 4), (300, 600, 4), (9, 300, 200),
+    (33, 17, 1), (33, 15, 2), (33, 33, 3), (33, 17, 4), (33, 1, 5), (33, 15, 6),
+    (33, 33, 7), (33, 17, 8), (33, 17, 9), (33, 2, 4), (33, 3, 4), (1000, 33, 5),
 ]
 # (atol, rtol) of the kernels against their plain versions: a tenth of the
 # bars of tests/test_pallas_kernels.py (gamma atol 1e-5, log-evidence rtol
@@ -395,7 +405,13 @@ def phase_hmm_kernel(torch, kernels_hmm) -> dict:
     """K2 and K3 against their plain versions on the card; returns the
     largest absolute error of each over every case."""
     worst = {"hmm_fb": 0.0, "hmm_fb_counts": 0.0}
-    for R, T, K in HMM_KERNEL_CASES:
+    edges = []
+    for K in (4, 8):
+        T = 1
+        while kernels_hmm.kernel_plan(T + 1, K)[0] == kernels_hmm.PAIR:
+            T += 1
+        edges += [(300, T, K), (300, T + 1, K)]
+    for R, T, K in HMM_KERNEL_CASES + edges:
         lik, A, pi = (torch.from_numpy(a).cuda() for a in hmm_inputs(R, T, K, seed=R + T + K))
         got2 = kernels_hmm.hmm_forward_backward_fused(lik, A, pi)
         got3 = kernels_hmm.hmm_forward_backward_counts_fused(lik, A, pi)
@@ -412,7 +428,9 @@ def phase_hmm_kernel(torch, kernels_hmm) -> dict:
                 errs[f"{kernel}.{field}"] = err
                 worst[kernel] = max(worst[kernel], err)
         group, alpha_smem = kernels_hmm.kernel_plan(T, K)
-        path = f"small K, {group} lanes a replica" if group else "general, a block a replica"
+        path = ("pair, a forward and a backward thread a replica" if group == kernels_hmm.PAIR
+                else f"lane group, {group} lanes a replica" if group
+                else "general, a block a replica")
         emit(phase="hmm_kernel", shape=[R, T, K], path=path,
              alphas="shared memory" if alpha_smem else "device memory",
              tol=HMM_TOL, max_abs_err=errs)
@@ -592,8 +610,8 @@ def median_ms(torch, fn, flush, runs: int = 25, warmup: int = 3) -> float:
 # reports them.
 DEVICE_KERNELS = {
     "kernel": ("smooth_segments_kernel", "smooth_global_kernel"),
-    "hmm_fb": ("fb_small_kernel", "fb_general_kernel"),
-    "hmm_fb_counts": ("fb_small_kernel", "fb_general_kernel"),
+    "hmm_fb": ("fb_pair_kernel", "fb_small_kernel", "fb_general_kernel"),
+    "hmm_fb_counts": ("fb_pair_kernel", "fb_small_kernel", "fb_general_kernel"),
     "probe": ("elementwise_kernel",),
 }
 

@@ -1,6 +1,8 @@
 // Hopper's bulk copies (the 1-D form of the Tensor Memory Accelerator) and the shared-memory
 // barriers they complete on, as inline PTX for sm_90a.  K1 (lgssm_smooth.cu) stages its
-// tiles and stores its marginals with them.
+// tiles and stores its marginals with them.  Below them, the per-thread asynchronous copies
+// (cp.async, 4 or 16 bytes), with which K2/K3 (hmm_forward_backward.cu) stage their rows of
+// lik.
 //
 // A bulk copy moves a contiguous run of bytes between device and shared memory without the
 // issuing thread's registers: both addresses 16-byte aligned, the size a multiple of 16.  A
@@ -76,5 +78,21 @@ __device__ __forceinline__ void store_commit() {
 __device__ __forceinline__ void store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+
+// Per-thread asynchronous copies, device memory -> shared memory: 16 bytes (both addresses
+// 16-byte aligned; cached in L2 only) or 4 bytes.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Wait until every copy this thread issued has landed.  Other threads see the copied data
+// after a barrier that follows the wait.
+__device__ __forceinline__ void copy_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 }  // namespace async_copy

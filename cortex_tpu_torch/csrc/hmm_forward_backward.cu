@@ -18,45 +18,66 @@
 //             xi_sum[j,k] = A[j,k] * sum_t (a_t(j) / N_t) * w(k)
 // The counts are those of the TPU wrapper's formula (pallas_hmm.py:237-247), whose beta
 // is gamma / alpha: a scale of b_t that cancels in w / N_t.  Here they are summed
-// inside the backward pass, so no alpha ever leaves the kernel.
+// inside the kernel (the pair path's combine, the other paths' backward pass), so no
+// alpha ever leaves it.
 //
-// What bounds it: bytes, in the least time.  lik is read once (the backward pass reads
-// it again, from L2) and gamma written once, 8 K B per replica-step, plus K*K*4 B of
-// xi_sum and 4 B of log_evidence per replica: 8.4 MB at 4096 x 64 x 4, 2.5 us at
-// 3.35 TB/s.  The operations (about 6 K^2 flops per replica-step) are far below the
-// card's rate at small K.  But each replica is a serial chain of 2T steps, each a few
-// shuffles, butterfly sums and IEEE divisions long, and that chain sets the time: on an
-// H100 SXM at 700 W the kernel takes about 12x its bound at 4096 replicas and 4x at
-// 65,536 (PERF.md), and keeping the lik loads eight steps ahead instead of one moved
-// neither time.
+// What bounds it: bytes, in the least time.  lik is read once and gamma written once,
+// 8 K B per replica-step, plus K*K*4 B of xi_sum and 4 B of log_evidence per replica:
+// 8.4 MB at 4096 x 64 x 4, 2.5 us at 3.35 TB/s.  The operations (about 6 K^2 flops per
+// replica-step) are far below the card's rate at small K.  But each replica is a serial
+// chain of 2T steps, and with 4,096 replicas (the main path) a warp per SM at most holds
+// them: the chain's latency sets the time.  On an H100 SXM at 700 W (PERF.md,
+// kernel_probe.py) the lane-group path took 29 us (K2) and 35 us (K3) at 4096 x 64 x 4;
+// one thread running a replica's whole chain with lik staged in chunks took 45 and 54 us
+// (one warp per SM on one of its four schedulers); the pair path below takes 16 and 19 us,
+// of which the two chains (running at once) are about 10 us.
 //
 // Design:
-//   * small-K path (K <= 32): a group of G lanes (G = K rounded up to a power of two)
-//     runs one replica, lane k holding state k.  The K x K products are K shuffles
-//     within the group against the lane's column (forward) or row (backward) of A,
-//     held in registers; the sums over states are xor-butterflies, which leave the
-//     same total in every lane.  A step's lik load is issued one step ahead.  Lanes
-//     k >= K and replicas past R hold zeros and store nothing: no padding.
+//   * pair path (K <= 8 while the block's rows fit; the wrapper's kernel_plan): a block
+//     of four warps for 32 replicas.  The backward recursion for b does not depend on
+//     alpha, so warp 0 runs the replicas' forward chains while warp 1 runs their backward
+//     chains, each thread holding its replica's K states (padded to KP = 1, 2, 4 or 8 with
+//     zeros) and A's K^2 entries in registers: a step's product is KP independent FMA
+//     chains of depth KP, its sums over states register adds, no shuffle and no butterfly.
+//     Then all four warps combine, a quarter of T each: gamma_t = alpha_t b_t / sum and, with
+//     COUNTS, the pairwise counts (alpha_t / N_t) w, N_t = alpha_t . A w + 1e-30,
+//     w = lik_{t+1} b_{t+1}, no chain left.  The block's rows of lik come in whole by
+//     16-byte cp.async copies, coalesced (the rows are contiguous); lik, alpha and b rows
+//     sit in shared memory at a pitch of 4 mod 8 floats, so eight rows' 16-byte accesses
+//     at one step hit 32 banks; the marginals replace the alphas in place and leave
+//     coalesced.  Each normalization is one correctly rounded reciprocal and K multiplies;
+//     logf(n) accumulates beside the chain.
+//   * lane-group path (K <= 32, where the pair path does not run): a group of G lanes
+//     (G = K rounded up to a power of two) runs one replica, lane k holding state k.  The
+//     K x K products are K shuffles within the group against the lane's column (forward)
+//     or row (backward) of A, held in registers; the sums over states are
+//     xor-butterflies, which leave the same total in every lane.  A step's lik load is
+//     issued one step ahead.  Lanes k >= K and replicas past R hold zeros and store
+//     nothing: no padding.  Alphas in shared memory (32 * T floats per warp, T <= 454 at
+//     4 warps a block) or through gamma in device memory, which the backward pass
+//     overwrites with the marginals, as the TPU kernel does in VMEM.  IEEE divisions.
 //   * general path (any K): one block per replica, threads striding over the states,
 //     the state vectors in shared memory, sums over states by block reduction; A is
 //     read through the cache (forward, column access) and At (backward), so that
 //     neighbouring threads read neighbouring addresses.  The counts accumulate in the
-//     xi_sum output, each element owned by one thread.
-//   * alphas: kept in shared memory while they fit (small path: 32 * T floats per warp,
-//     T <= 454 at 4 warps a block; general path: T * K floats per block); otherwise
-//     they go through the gamma output in device memory, which the backward pass
-//     overwrites with the marginals, as the TPU kernel does in VMEM.
-//   * IEEE division and logf throughout: no approximate reciprocal.
+//     xi_sum output, each element owned by one thread.  Alphas in shared memory (T * K
+//     floats per block) or through gamma in device memory.  IEEE divisions.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
 constexpr float kFloor = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSmallBlock = 128;   // threads per block of the small-K path (4 warps)
+constexpr int kSmallBlock = 128;   // threads per block of the lane-group path (4 warps)
 constexpr int kGeneralMaxBlock = 256;
 constexpr int kReduceSlots = 32;   // one per warp of a general-path block
+
+// -- lane-group path ------------------------------------------------------------------------
 
 template <int G>
 __device__ __forceinline__ float group_sum(float v) {
@@ -154,6 +175,262 @@ fb_small_kernel(const float* __restrict__ lik, const float* __restrict__ A,
     }
   }
 }
+
+// -- pair path -------------------------------------------------------------------------------
+
+// KP states at p (K of them; zeros past K).  p is 16-byte aligned when K == KP >= 4.
+template <int KP>
+__device__ __forceinline__ void read_states(const float* p, int K, float (&v)[KP]) {
+  if (KP >= 4 && K == KP) {
+#pragma unroll
+    for (int q = 0; q < KP / 4; ++q) {
+      const float4 x = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < KP; ++k) v[k] = k < K ? p[k] : 0.f;
+  }
+}
+
+template <int KP>
+__device__ __forceinline__ void write_states(float* p, int K, const float (&v)[KP]) {
+  if (KP >= 4 && K == KP) {
+#pragma unroll
+    for (int q = 0; q < KP / 4; ++q) {
+      reinterpret_cast<float4*>(p)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      if (k < K) p[k] = v[k];
+    }
+  }
+}
+
+template <int KP>
+__device__ __forceinline__ float sum_states(const float (&v)[KP]) {
+  float part[KP];
+#pragma unroll
+  for (int k = 0; k < KP; ++k) part[k] = v[k];
+#pragma unroll
+  for (int width = KP / 2; width > 0; width /= 2) {
+#pragma unroll
+    for (int k = 0; k < width; ++k) part[k] += part[k + width];
+  }
+  return part[0];
+}
+
+constexpr int kPairRows = 32;   // replicas per block of the pair path
+constexpr int kPairWarps = 4;   // warps per block: two run the chains, all share the rest
+
+// Floats per row of a whole replica (T * K) in shared memory: rounded up to a multiple of 4
+// (16-byte rows) that is 4 mod 8, so eight rows' 16-byte accesses at one step hit 32 banks.
+__host__ __device__ constexpr long long row_pitch(long long n) {
+  return (n + 3) / 4 * 4 % 8 == 0 ? (n + 3) / 4 * 4 + 4 : (n + 3) / 4 * 4;
+}
+
+// Shared memory of a pair block: lik, alpha and b rows of its replicas, and the count sums
+// of every warp but the first.
+__host__ __device__ constexpr long long pair_smem_bytes(int T, int K) {
+  return 4LL * kPairRows * (3 * row_pitch(static_cast<long long>(T) * K) +
+                            (kPairWarps - 1LL) * K * K);
+}
+
+// Block of kPairWarps warps, 32 replicas whose rows of lik are staged whole in shared
+// memory by all of them.  Phase 1: warp 0 runs the replicas' forward chains (alpha_t,
+// log-evidence), warp 1 at the same time their backward chains (b_t), which do not depend
+// on alpha; the other warps wait.  Phase 2: every warp combines a quarter of T:
+// gamma_t = alpha_t b_t / sum, and with COUNTS the pairwise counts from alpha_t, b_{t+1}
+// and lik_{t+1}.  Each normalization is one correctly rounded reciprocal and K multiplies
+// (its float32 torch twin: tests/test_torch_hmm_kernels.py); the counts' sum over t is
+// taken in four parts, added in order.  vec: lik and gamma move 16 bytes at a time.
+template <int KP, bool COUNTS>
+__global__ void __launch_bounds__(kPairWarps * 32)
+fb_pair_kernel(const float* __restrict__ lik, const float* __restrict__ A,
+               const float* __restrict__ pi, float* __restrict__ gamma,
+               float* __restrict__ xi, float* __restrict__ logz, long long R, int T, int K,
+               bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = T * K;
+  const int PL = static_cast<int>(row_pitch(n));
+  float* s_lik = smem;
+  float* s_alpha = s_lik + kPairRows * PL;  // alpha_t, then gamma_t
+  float* s_b = s_alpha + kPairRows * PL;
+  float* s_part = s_b + kPairRows * PL;  // COUNTS: warps 1.. their sums, K * K a replica
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kPairRows;
+  const int rows = static_cast<int>(min(static_cast<long long>(kPairRows), R - r0));
+  const bool live = lane < rows;  // a thread past R computes on stale rows, stores nothing
+  const float* L = lik + r0 * n;  // the block's rows are contiguous
+  float* G = gamma + r0 * n;
+
+  if (vec) {
+    const int q = n / 4;
+    for (int e = threadIdx.x; e < rows * q; e += 32 * kPairWarps) {
+      const int i = e / q, m = e - i * q;
+      async_copy::copy16(s_lik + i * PL + 4 * m, L + 4LL * e);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * n; e += 32 * kPairWarps) {
+      const int i = e / n, m = e - i * n;
+      async_copy::copy4(s_lik + i * PL + m, L + e);
+    }
+  }
+
+  float a_m[KP][KP];  // A[j][k]; zero outside K
+#pragma unroll
+  for (int j = 0; j < KP; ++j) {
+#pragma unroll
+    for (int k = 0; k < KP; ++k) a_m[j][k] = j < K && k < K ? A[j * K + k] : 0.f;
+  }
+  async_copy::copy_wait_all();
+  __syncthreads();
+
+  const float* lrow = s_lik + lane * PL;
+  float* arow = s_alpha + lane * PL;
+  float* brow = s_b + lane * PL;
+  if (warp == 0) {  // -- forward, renormalized at every step ------------------------------
+    float al[KP], l[KP], v[KP];
+    read_states<KP>(lrow, K, l);
+#pragma unroll
+    for (int k = 0; k < KP; ++k) v[k] = (k < K ? pi[k] : 0.f) * l[k];
+    float lz = 0.f;
+    for (int t = 0;;) {
+      const float norm = fmaxf(sum_states<KP>(v), kFloor);
+      const float inv = __frcp_rn(norm);
+#pragma unroll
+      for (int k = 0; k < KP; ++k) al[k] = v[k] * inv;
+      lz += logf(norm);
+      write_states<KP>(arow + t * K, K, al);
+      if (++t == T) break;
+      read_states<KP>(lrow + t * K, K, l);
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        float pred = 0.f;
+#pragma unroll
+        for (int i = 0; i < KP; ++i) pred = fmaf(a_m[i][k], al[i], pred);
+        v[k] = pred * l[k];
+      }
+    }
+    if (live) logz[r0 + lane] = lz;
+  } else if (warp == 1) {  // -- backward: b_{T-1} = 1, b_t = A (lik_{t+1} b_{t+1}) / sum --------------------
+    float b[KP], l[KP];
+#pragma unroll
+    for (int k = 0; k < KP; ++k) b[k] = 1.f;
+    write_states<KP>(brow + (T - 1) * K, K, b);
+    for (int t = T - 2; t >= 0; --t) {
+      read_states<KP>(lrow + (t + 1) * K, K, l);
+      float w[KP], u[KP];
+#pragma unroll
+      for (int k = 0; k < KP; ++k) w[k] = l[k] * b[k];
+#pragma unroll
+      for (int i = 0; i < KP; ++i) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < KP; ++k) acc = fmaf(a_m[i][k], w[k], acc);
+        u[i] = acc;
+      }
+      const float inv_s = __frcp_rn(fmaxf(sum_states<KP>(u), kFloor));
+#pragma unroll
+      for (int k = 0; k < KP; ++k) b[k] = u[k] * inv_s;
+      write_states<KP>(brow + t * K, K, b);
+    }
+  }
+  __syncthreads();
+
+  // -- combine: warp w takes steps [w * span, (w + 1) * span) of its lane's replica ------
+  const int span = (T + kPairWarps - 1) / kPairWarps;
+  float S[COUNTS ? KP : 1][COUNTS ? KP : 1];
+#pragma unroll
+  for (int i = 0; i < (COUNTS ? KP : 1); ++i) {
+#pragma unroll
+    for (int k = 0; k < (COUNTS ? KP : 1); ++k) S[i][k] = 0.f;
+  }
+  const int t_end = min(T, (warp + 1) * span);
+  for (int t = warp * span; t < t_end; ++t) {
+    float at[KP];
+    read_states<KP>(arow + t * K, K, at);
+    if (t == T - 1) continue;  // gamma_{T-1} = alpha_{T-1}, already in place
+    float b[KP], g[KP];
+    read_states<KP>(brow + t * K, K, b);
+#pragma unroll
+    for (int k = 0; k < KP; ++k) g[k] = at[k] * b[k];
+    const float inv_g = __frcp_rn(fmaxf(sum_states<KP>(g), kFloor));
+#pragma unroll
+    for (int k = 0; k < KP; ++k) g[k] *= inv_g;
+    write_states<KP>(arow + t * K, K, g);
+    if (COUNTS) {
+      float l[KP], b1[KP], w[KP], au[KP];
+      read_states<KP>(lrow + (t + 1) * K, K, l);
+      read_states<KP>(brow + (t + 1) * K, K, b1);
+#pragma unroll
+      for (int k = 0; k < KP; ++k) w[k] = l[k] * b1[k];
+#pragma unroll
+      for (int i = 0; i < KP; ++i) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < KP; ++k) acc = fmaf(a_m[i][k], w[k], acc);
+        au[i] = at[i] * acc;
+      }
+      const float inv_n = __frcp_rn(sum_states<KP>(au) + kFloor);
+#pragma unroll
+      for (int i = 0; i < (COUNTS ? KP : 1); ++i) {
+        const float q = at[i] * inv_n;
+#pragma unroll
+        for (int k = 0; k < (COUNTS ? KP : 1); ++k) S[i][k] = fmaf(q, w[k], S[i][k]);
+      }
+    }
+  }
+  const int KK = K * K;
+  if (COUNTS && warp > 0) {
+    float* part = s_part + ((warp - 1) * kPairRows + lane) * KK;
+#pragma unroll
+    for (int i = 0; i < (COUNTS ? KP : 1); ++i) {
+#pragma unroll
+      for (int k = 0; k < (COUNTS ? KP : 1); ++k) {
+        if (i < K && k < K) part[i * K + k] = S[i][k];
+      }
+    }
+  }
+  __syncthreads();
+  if (COUNTS && warp == 0 && live) {  // the warps' sums added in order
+    float* X = xi + (r0 + lane) * KK;
+#pragma unroll
+    for (int i = 0; i < (COUNTS ? KP : 1); ++i) {
+#pragma unroll
+      for (int k = 0; k < (COUNTS ? KP : 1); ++k) {
+        if (i >= K || k >= K) continue;
+        float total = S[i][k];
+        for (int w = 1; w < kPairWarps; ++w) {
+          total += s_part[((w - 1) * kPairRows + lane) * KK + i * K + k];
+        }
+        X[i * K + k] = a_m[i][k] * total;
+      }
+    }
+  }
+
+  // -- the marginals out, coalesced: the block's rows are contiguous in gamma -------------
+  if (vec) {
+    const int q = n / 4;
+    for (int e = threadIdx.x; e < rows * q; e += 32 * kPairWarps) {
+      const int i = e / q, m = e - i * q;
+      *reinterpret_cast<float4*>(G + 4LL * e) =
+          *reinterpret_cast<const float4*>(s_alpha + i * PL + 4 * m);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * n; e += 32 * kPairWarps) {
+      const int i = e / n, m = e - i * n;
+      G[e] = s_alpha[i * PL + m];
+    }
+  }
+}
+
+// -- general path ----------------------------------------------------------------------------
 
 // Sum of v over the block; every thread returns the same value.  s_red holds one
 // slot per warp.
@@ -313,6 +590,32 @@ int launch_general(const float* lik, const float* A, const float* At, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int KP, bool COUNTS>
+int launch_pair(const float* lik, const float* A, const float* pi, float* gamma, float* xi,
+                float* logz, long long R, int T, int K, cudaStream_t stream) {
+  const bool vec = static_cast<long long>(T) * K % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(lik) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(gamma) & 15) == 0;
+  const unsigned grid = static_cast<unsigned>((R + kPairRows - 1) / kPairRows);
+  const int smem = static_cast<int>(pair_smem_bytes(T, K));
+  cudaError_t err = cudaFuncSetAttribute(fb_pair_kernel<KP, COUNTS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fb_pair_kernel<KP, COUNTS><<<grid, 32 * kPairWarps, smem, stream>>>(lik, A, pi, gamma, xi, logz,
+                                                                    R, T, K, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool COUNTS>
+int launch_pair_k(const float* lik, const float* A, const float* pi, float* gamma, float* xi,
+                  float* logz, long long R, int T, int K, cudaStream_t stream) {
+  if (K <= 1) return launch_pair<1, COUNTS>(lik, A, pi, gamma, xi, logz, R, T, K, stream);
+  if (K <= 2) return launch_pair<2, COUNTS>(lik, A, pi, gamma, xi, logz, R, T, K, stream);
+  if (K <= 4) return launch_pair<4, COUNTS>(lik, A, pi, gamma, xi, logz, R, T, K, stream);
+  if (K <= 8) return launch_pair<8, COUNTS>(lik, A, pi, gamma, xi, logz, R, T, K, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool COUNTS>
 int launch(const float* lik, const float* A, const float* At, const float* pi, float* gamma,
            float* xi, float* logz, long long R, int T, int K, int group, int alpha_smem,
@@ -321,6 +624,7 @@ int launch(const float* lik, const float* A, const float* At, const float* pi, f
   const bool sm = alpha_smem != 0;
   switch (group) {
     case 0: return launch_general<COUNTS>(lik, A, At, pi, gamma, xi, logz, R, T, K, sm, stream);
+    case -1: return launch_pair_k<COUNTS>(lik, A, pi, gamma, xi, logz, R, T, K, stream);
     case 1: return launch_small<1, COUNTS>(lik, A, pi, gamma, xi, logz, R, T, K, sm, stream);
     case 2: return launch_small<2, COUNTS>(lik, A, pi, gamma, xi, logz, R, T, K, sm, stream);
     case 4: return launch_small<4, COUNTS>(lik, A, pi, gamma, xi, logz, R, T, K, sm, stream);
@@ -335,9 +639,11 @@ int launch(const float* lik, const float* A, const float* At, const float* pi, f
 
 extern "C" {
 
-// group: 0 for the general path, else the small path's lanes per replica (a power of two
-// from K up to 32).  alpha_in_smem: keep the alphas in shared memory (the caller has
-// checked that they fit).  Returns the cudaError_t of the launch (0 on success).
+// group: -1 for the pair path (K <= 8; the caller has checked that its rows fit), the
+// lanes of a group that runs a replica for the lane-group path (a power of two from K up to
+// 32), 0 for the general path.  alpha_in_smem: keep the alphas in shared memory (the caller
+// has checked that they fit; the pair path always does).  Returns the cudaError_t of the
+// launch (0 on success).
 int hmm_forward_backward_f32(const float* lik, const float* A, const float* At, const float* pi,
                              float* gamma, float* log_evidence, long long R, int T, int K,
                              int group, int alpha_in_smem, void* stream) {

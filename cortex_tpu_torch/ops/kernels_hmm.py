@@ -31,7 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .chains import _full_float32_matmul
-from .kernels import LAUNCHES, SMEM_LIMIT_BYTES, _library
+from .kernels import LAUNCHES, SMEM_LIMIT_BYTES, _library, row_pitch
 
 __all__ = [
     "HMMFusedPosterior",
@@ -41,11 +41,19 @@ __all__ = [
     "hmm_forward_backward_counts_fused",
     "hmm_forward_backward_counts_fused_reference",
     "kernel_plan",
+    "pair_smem_bytes",
 ]
 
 FLOOR = 1e-30
-SMALL_K_MAX = 32  # the small-K path runs a replica on a group of up to 32 lanes
-SMALL_WARPS = 4  # warps per block of the small-K path (csrc: kSmallBlock / 32)
+PAIR = -1  # kernel_plan's group for the pair path (csrc: group -1)
+# Up to PAIR_K_MAX states (padded to 1, 2, 4 or 8, in registers) the pair path
+# runs where its rows fit; on an H100 it beat the lane groups at K=4 and 8
+# (PERF.md).
+PAIR_K_MAX = 8
+PAIR_ROWS = 32  # replicas per block of the pair path (csrc: kPairRows)
+PAIR_WARPS = 4  # warps per block of the pair path (csrc: kPairWarps)
+SMALL_K_MAX = 32  # the lane-group path runs a replica on a group of up to 32 lanes
+SMALL_WARPS = 4  # warps per block of the lane-group path (csrc: kSmallBlock / 32)
 REDUCE_SLOTS = 32  # csrc: kReduceSlots
 
 
@@ -60,15 +68,27 @@ class HMMFusedCounts(NamedTuple):
     log_evidence: torch.Tensor  # (R,)
 
 
+def pair_smem_bytes(T: int, K: int) -> int:
+    """Shared memory of a block of the pair path (csrc: ``pair_smem_bytes``):
+    lik, alpha and b rows of its replicas and the count sums of every warp
+    but the first."""
+    return 4 * PAIR_ROWS * (3 * row_pitch(T * K) + (PAIR_WARPS - 1) * K * K)
+
+
 def kernel_plan(T: int, K: int) -> Tuple[int, bool]:
     """How the kernel runs ``T`` steps of ``K`` states: ``(group, alpha_in_smem)``.
 
-    ``group`` is the small-K path's lanes per replica (``K`` rounded up to a
-    power of two, for ``K <= 32``) or 0 for the general path (one block per
+    ``group`` is :data:`PAIR` for the pair path (``K <= PAIR_K_MAX`` while
+    the rows of lik, alpha and b of its 32 replicas fit in shared memory: a
+    warp runs their forward chains and another their backward chains), else
+    the lanes of a group that runs one replica (``K`` rounded up to a power
+    of two, for ``K <= 32``), or 0 for the general path (one block per
     replica).  ``alpha_in_smem`` says whether the forward messages fit in
     shared memory; otherwise they go through the ``gamma`` output.  Raises
     ``ValueError`` when even the general path's state vectors do not fit.
     """
+    if K <= PAIR_K_MAX and pair_smem_bytes(T, K) <= SMEM_LIMIT_BYTES:
+        return PAIR, True
     if K <= SMALL_K_MAX:
         group = 1 << (K - 1).bit_length()
         return group, 4 * SMALL_WARPS * 32 * T <= SMEM_LIMIT_BYTES

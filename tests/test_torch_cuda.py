@@ -30,6 +30,7 @@ from cortex_tpu_torch.ops import kernels, kernels_hgf, kernels_hmm
 from cortex_tpu_torch.parallel import StreamingSession, stream_filter
 
 REPO = Path(__file__).resolve().parents[1]
+PAIR = kernels_hmm.PAIR
 NONDEFAULT = dict(A=0.9, Q=0.5, H=2.0, R=0.7)
 
 
@@ -118,15 +119,27 @@ def _hmm_inputs(R, T, K, device, seed=0):
 @pytest.mark.parametrize(
     "R, T, K, plan",
     [
-        (300, 64, 4, (4, True)),  # small K, ragged last block
-        (77, 33, 3, (4, True)),  # lanes past K
-        (50, 20, 1, (1, True)),
+        (300, 64, 4, (PAIR, True)),  # the pair path, ragged last block
+        (77, 33, 3, (PAIR, True)),  # states past K, T * K off a multiple of 4
+        (50, 20, 1, (PAIR, True)),
         (33, 40, 32, (32, True)),
-        (65, 500, 4, (4, False)),  # alphas through device memory
-        (5, 1, 4, (4, True)),  # one step
+        (65, 500, 4, (4, False)),  # lane groups, alphas through device memory
+        (5, 1, 4, (PAIR, True)),  # one step
         (7, 30, 64, (0, True)),  # general path
         (3, 1, 40, (0, True)),
         (4, 300, 200, (0, False)),  # general path, alphas through device memory
+        # The pair path's edges: K 5-8, T about the chains' meeting point and
+        # odd, R past a block, the longest rows that fit at K=4 and the next
+        # (lane groups); K=9 takes lane groups.
+        (33, 15, 5, (PAIR, True)),
+        (33, 17, 6, (PAIR, True)),
+        (33, 33, 7, (PAIR, True)),
+        (33, 16, 8, (PAIR, True)),
+        (33, 2, 4, (PAIR, True)),
+        (33, 3, 4, (PAIR, True)),
+        (40, 147, 4, (PAIR, True)),
+        (40, 148, 4, (4, True)),
+        (33, 17, 9, (16, True)),
     ],
 )
 def test_hmm_kernels_match_plain_versions(cuda, R, T, K, plan):

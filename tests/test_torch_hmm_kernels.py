@@ -5,8 +5,9 @@ held against the JAX Pallas kernels in interpret mode, as
 tests/test_pallas_kernels.py runs them, at its bars: gamma atol 1e-5,
 log-evidence rtol 1e-5, xi_sum atol 1e-5 and its total mass rtol 1e-4.  The
 CUDA kernel's own arithmetic (the pairwise counts summed inside the backward
-pass) is held against the plain version by a torch twin here, and the
-kernel itself by the ``cuda``-marked tests of tests/test_torch_cuda.py.
+pass; on the pair path a reciprocal and K multiplies for each
+normalization) is held against the plain version by torch twins here, and
+the kernel itself by the ``cuda``-marked tests of tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -126,6 +127,50 @@ def test_fused_counts_formula_matches_plain_version(R, T, K, underflow):
     torch.testing.assert_close(logz, ref.log_evidence, rtol=1e-5, atol=0)
 
 
+def _reciprocal_twin(lik, A, pi):
+    """The pair path's arithmetic (csrc/hmm_forward_backward.cu,
+    ``fb_pair_kernel``) in float32 torch ops: every normalization is one
+    correctly rounded reciprocal of the floored sum and K multiplies, where
+    the plain version divides.  (The kernel sums the counts over t in four
+    parts; here in one.)"""
+    R, T, K = lik.shape
+    alpha = torch.empty_like(lik)
+    a = pi * lik[:, 0]
+    n = a.sum(-1, keepdim=True).clamp_min(FLOOR)
+    alpha[:, 0] = a * (1 / n)
+    logz = torch.log(n[:, 0])
+    for t in range(1, T):
+        a = (alpha[:, t - 1, :, None] * A).sum(1) * lik[:, t]
+        n = a.sum(-1, keepdim=True).clamp_min(FLOOR)
+        alpha[:, t] = a * (1 / n)
+        logz = logz + torch.log(n[:, 0])
+    gamma = alpha.clone()
+    S = torch.zeros(R, K, K)
+    b = torch.ones(R, K)
+    for t in range(T - 2, -1, -1):
+        w = lik[:, t + 1] * b
+        u = (A * w[:, None, :]).sum(-1)
+        b = u * (1 / u.sum(-1, keepdim=True).clamp_min(FLOOR))
+        g = alpha[:, t] * b
+        gamma[:, t] = g * (1 / g.sum(-1, keepdim=True).clamp_min(FLOOR))
+        q = alpha[:, t] * (1 / ((alpha[:, t] * u).sum(-1, keepdim=True) + FLOOR))
+        S += q[:, :, None] * w[:, None, :]
+    return gamma, A * S, logz
+
+
+@pytest.mark.parametrize("T", [1, 17, 64, 4096])
+def test_reciprocal_normalization_stays_within_the_chip_bar(T):
+    """The pair path rounds otherwise than the plain version: held to
+    it at chip_smoke.py's HMM_TOL, gamma atol 1e-6, log-evidence rtol 1e-6,
+    xi_sum atol = rtol 3e-5, out to T=4,096."""
+    lik, A, pi = _torch(*_inputs(4, T, 4, seed=T))
+    gamma, xi, logz = _reciprocal_twin(lik, A, pi)
+    ref = kernels_hmm.hmm_forward_backward_counts_fused_reference(lik, A, pi)
+    torch.testing.assert_close(gamma, ref.gamma, rtol=0, atol=1e-6)
+    torch.testing.assert_close(logz, ref.log_evidence, rtol=1e-6, atol=0)
+    torch.testing.assert_close(xi, ref.xi_sum, rtol=3e-5, atol=3e-5)
+
+
 def test_wrappers_take_plain_path_on_cpu_without_counting():
     lik, A, pi = _torch(*_inputs(7, 11, 3, seed=1))
     before = dict(kernels.LAUNCHES)
@@ -165,17 +210,31 @@ def test_wrappers_reject_what_the_kernel_does_not_take(args, error):
             fn(*args)
 
 
+PAIR = kernels_hmm.PAIR
+
+
 @pytest.mark.parametrize(
     "T, K, plan",
     [
-        (64, 1, (1, True)), (64, 2, (2, True)), (64, 3, (4, True)), (64, 4, (4, True)),
-        (64, 17, (32, True)), (64, 32, (32, True)), (454, 4, (4, True)),
-        (455, 4, (4, False)), (1, 33, (0, True)), (20, 200, (0, True)),
-        (300, 200, (0, False)),
+        # The pair path for K <= 8 while the rows of lik, alpha and b of its
+        # 32 replicas fit in shared memory (T=147 at K=4, 67 at K=8, 604 at
+        # K=1); past that the lane groups, their alphas in shared memory up to
+        # T=454.
+        (64, 1, (PAIR, True)), (64, 2, (PAIR, True)), (64, 3, (PAIR, True)),
+        (64, 4, (PAIR, True)), (64, 5, (PAIR, True)), (64, 6, (PAIR, True)),
+        (64, 7, (PAIR, True)), (64, 8, (PAIR, True)),
+        (147, 4, (PAIR, True)), (148, 4, (4, True)), (454, 4, (4, True)), (455, 4, (4, False)),
+        (604, 1, (PAIR, True)), (605, 1, (1, False)), (67, 8, (PAIR, True)), (68, 8, (8, True)),
+        # Lane groups for 9 <= K <= 32, a block a replica beyond.
+        (64, 9, (16, True)), (64, 17, (32, True)), (64, 32, (32, True)),
+        (1, 33, (0, True)), (20, 200, (0, True)), (300, 200, (0, False)),
     ],
 )
 def test_kernel_plan_covers_every_state_count(T, K, plan):
     assert kernels_hmm.kernel_plan(T, K) == plan
+    if K <= kernels_hmm.PAIR_K_MAX:  # the pair path's rule: its rows fit
+        fits = kernels_hmm.pair_smem_bytes(T, K) <= kernels.SMEM_LIMIT_BYTES
+        assert (plan[0] == PAIR) == fits
 
 
 def test_kernel_plan_raises_where_state_vectors_exceed_shared_memory():
