@@ -46,6 +46,18 @@ port's own plain versions.  Phases, each printing JSON lines:
 11. ``hgf_times``: K4 (device and call time), its plain version, the scan
     path and a matched-traffic probe for three track sets, and the floor
     probe (one HGF step on every element at once), each beside its bound.
+12. ``generic_main_path``: the generic factor-graph compiler at 10,000
+    replicas (the JAX bench's ``generic_compiled``, ``generic_vmp`` and
+    ``generic_structured``): the BP chain (T=100) through
+    ``CompiledInference`` against the float64 RTS, the port's scan smoother,
+    K1 and its own unlowered run; mean-field VMP (n=100, 4 iterations)
+    against a hand-written Jacobi sweep and the port's CPU run; structured
+    VMP against the CPU run and ``fixed_point``; the device kernels one call
+    of each launches; the kernel counts over the phase.
+13. ``generic_times``: per BP sweep beside the scan and K1 on the same data,
+    per VMP iteration beside the hand-written sweep, the structured warm
+    start and steady iteration, and each path's device time against its
+    call time (the host's share).
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 A failed check raises: the exit code is non-zero and the last line is not
@@ -164,6 +176,19 @@ BINARY_TOL = 5e-5
 # Track sets timed, by name: (tracks, bf16 tracks).
 HGF_CONFIGS = {"all five f32": (ALL5, False), "filter only": ((), False),
                "mu1 mu2 bf16": (("mu1", "mu2"), True)}
+
+# The generic compiled path at the width of the JAX bench (bench.py:252-495,
+# 940-972): 10,000 replicas, the chain and both VMP graphs n = T = 100, four
+# VMP iterations; the structured path's steady iteration from 4 and 12.
+GENERIC_R, GENERIC_T, GENERIC_ITERS, GENERIC_ITERS_LONG = 10_000, 100, 4, 12
+N_CPU = 256  # replicas of the VMP graphs held against the port's CPU run
+# Bars: the BP chain against the float64 RTS at 2e-4 (the main path's), against
+# the scan smoother at 1e-5 (the same recursion in float32), the lowered plan
+# against the unlowered one at rtol 1e-6, atol 1e-7 (tests/test_lowering.py);
+# VMP against the hand-written sweep and the CPU at rtol 1e-4 (atol 1e-6 for
+# means near 0); fixed_point against iterate at 1e-5.
+GENERIC_TOL = {"rts": 2e-4, "scan": 1e-5, "lowered": (1e-7, 1e-6), "vmp": (1e-6, 1e-4),
+               "fixed_point": 1e-5}
 
 # Data-sheet rates of the H100 SXM (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s and float32 operations/s outside the tensor cores.
@@ -917,6 +942,284 @@ def phase_hgf_times(torch, models, kernels_hgf, card: str) -> dict:
     return result
 
 
+def _broadcast_state(tree, base_state, y_pos, initials, data):
+    """The VMP graphs' compile-time state at ``data.shape[0]`` replicas: the
+    frozen ``y`` marginals are the columns of ``data`` (R, n), every other
+    leaf is broadcast to (R,)."""
+    R = data.shape[0]
+    state = []
+    for s, v in zip(initials, base_state):
+        if id(s) in y_pos:
+            state.append(data[:, y_pos[id(s)]])
+        else:
+            state.append(tree.tree_map(lambda a: a.expand((R,) + tuple(a.shape)), v))
+    return state
+
+
+def handwritten_mean_field(torch, data, n_iterations: int):
+    """The JAX bench's hand-written Jacobi sweep of the mean-field SSM
+    (bench.py:347-377) in torch: all messages from the previous sweep's
+    marginals, then all marginals.  Returns ``(E[tau_ss], E[tau_obs], the
+    state means)``, (R,), (R,), (R, n)."""
+    F = torch.nn.functional
+    R, n = data.shape
+    qm, qv = torch.zeros_like(data), torch.ones_like(data)
+    qss = torch.ones(R, dtype=data.dtype, device=data.device)
+    qobs = torch.ones_like(qss)
+    ones = torch.ones_like(data[:, 1:])
+    has_l, has_r = F.pad(ones, (1, 0)), F.pad(ones, (0, 1))
+    for _ in range(n_iterations):
+        lik_prec, trans = qobs[:, None], qss[:, None]
+        prec = lik_prec + trans * (has_l + has_r)
+        wmean = (lik_prec * data + trans * F.pad(qm[:, :-1], (1, 0))
+                 + trans * F.pad(qm[:, 1:], (0, 1)))
+        qm_new, qv_new = wmean / prec, 1.0 / prec
+        rate_obs = 0.5 * (qv + (data - qm) ** 2)
+        qobs_new = (1.5 * n - (n - 1.0)) / torch.sum(rate_obs, dim=1)
+        rate_ss = 0.5 * (qv[:, :-1] + qv[:, 1:] + (qm[:, :-1] - qm[:, 1:]) ** 2)
+        qss_new = (1.5 * (n - 1.0) - (n - 2.0)) / torch.sum(rate_ss, dim=1)
+        qm, qv, qss, qobs = qm_new, qv_new, qss_new, qobs_new
+    return qss, qobs, qm
+
+
+class GenericPaths:
+    """The three generic compiled paths at ``R`` replicas on ``device``, each
+    a call a user would make: the BP chain (``bp(y)``, y (R, T)), mean-field
+    VMP and structured VMP (``vmp(data, iters)`` and ``structured(data,
+    iters)``, data (R, n)), each returning the quantities it is checked on."""
+
+    def __init__(self, torch, device, T: int, n: int, lower: bool = True):
+        from cortex_tpu_torch.compile import CompiledInference, dep_role_key, smart_stack
+        from cortex_tpu_torch.models import (
+            LGSSMChainBatched, MeanFieldSSMBatched, StructuredSSMBatched, make_chain_graph,
+            make_mean_field_ssm_graph, make_structured_ssm_graph)
+        from cortex_tpu_torch.utils import tree
+
+        self.torch, self.device, self.tree, self.smart_stack = torch, device, tree, smart_stack
+        engine, self.x, y, _ = make_chain_graph(T)
+        self.chain = CompiledInference(engine, self.x, LGSSMChainBatched(), lower=lower)
+        vid_to_obs = {v: i for i, v in enumerate(y)}
+        perm = [vid_to_obs[k[1]] for k in self.chain.source_keys()]
+        self.perm = None if perm == list(range(T)) else perm
+        self.vmp = {}
+        for name, make, rules in (("mean_field", make_mean_field_ssm_graph, MeanFieldSSMBatched),
+                                  ("structured", make_structured_ssm_graph, StructuredSSMBatched)):
+            engine, x, y, ss, obs = make(n, [0.0] * n, device=device)
+            compiled = CompiledInference(engine, [ss, obs] + x, rules(), refine_key=dep_role_key)
+            y_pos = {id(engine.get_variable_marginal(v)): i for i, v in enumerate(y)}
+            self.vmp[name] = (compiled, compiled.initial_state(), y_pos, ss, obs, x)
+
+    def bp(self, y):
+        pack = y.T if self.perm is None else y.T[self.perm]
+        marginals, _ = self.chain.run({}, source_pack=pack.contiguous(), packed=True)
+        fam = self.smart_stack([marginals[v] for v in self.x])  # (T, R)
+        return fam.mean.T, fam.variance.T
+
+    def _state(self, name, data):
+        compiled, base, y_pos, *_ = self.vmp[name]
+        return _broadcast_state(self.tree, base, y_pos, compiled.schedule.initials, data)
+
+    def _means(self, name, marginals):
+        _, _, _, ss, obs, x = self.vmp[name]
+        return (marginals[ss].mean, marginals[obs].mean,
+                self.torch.stack([marginals[v].mean for v in x], dim=1))
+
+    def mean_field(self, data, n_iterations: int):
+        compiled = self.vmp["mean_field"][0]
+        marginals, _ = compiled.iterate({}, n_iterations, self._state("mean_field", data))
+        return self._means("mean_field", marginals)
+
+    def structured(self, data, n_iterations: int, fixed_point: bool = False):
+        compiled = self.vmp["structured"][0]
+        state = self._state("structured", data)
+        if fixed_point:
+            marginals, _ = compiled.fixed_point({}, n_iterations, state, mode="steady_state")
+        else:
+            marginals, _ = compiled.iterate({}, n_iterations, state, steady_state=True)
+        return self._means("structured", marginals)
+
+
+def generic_data(R: int, T: int, seed: int = 0):
+    """The chain's observations (a random walk) and the VMP graphs' (0.1 x
+    a random walk, as bench.py:379 makes them), float32 (R, T)."""
+    y = random_walk(R, T, seed)
+    return y, 0.1 * random_walk(R, T, seed + 1)
+
+
+def run_generic_main_path(torch, LGSSM, device, R: int, T: int,
+                          n_iterations: int = GENERIC_ITERS, n_cpu: int = N_CPU,
+                          seed: int = 0) -> list:
+    """Drive the generic compiled path once at ``R`` replicas on ``device``
+    through its public entry points, and check every result against the
+    references named in GENERIC_TOL.  Returns the checks."""
+    y_np, vmp_np = generic_data(R, T, seed)
+    y, data = torch.from_numpy(y_np).to(device), torch.from_numpy(vmp_np).to(device)
+    paths = GenericPaths(torch, device, T, T)
+    if not (paths.chain.plan is not None and paths.chain.plan.scan_segments):
+        raise SmokeFailure("the chain's schedule did not lower to scan segments")
+    mean, var = paths.bp(y)
+    unlowered = GenericPaths(torch, device, T, T, lower=False).bp(y)
+    scan = LGSSM().smooth(y, method="scan")
+    mf = paths.mean_field(data, n_iterations)
+    hand = handwritten_mean_field(torch, data, n_iterations)
+    st = paths.structured(data, n_iterations)
+    st_fp = paths.structured(data, n_iterations, fixed_point=True)
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+    cpu = GenericPaths(torch, "cpu", T, T)
+    data_cpu = data[:n_cpu].cpu()
+    mf_cpu = cpu.mean_field(data_cpu, n_iterations)
+    st_cpu = cpu.structured(data_cpu, n_iterations)
+
+    checks = []
+    if tuple(mean.shape) != (R, T):
+        raise SmokeFailure(f"BP chain marginals of shape {tuple(mean.shape)}, not ({R}, {T})")
+    sm, sv = numpy_rts(y_np[:N_RTS])
+    lo_atol, lo_rtol = GENERIC_TOL["lowered"]
+    for name, got, want, atol, rtol, against in (
+        ("BP chain mean", mean[:N_RTS], sm, GENERIC_TOL["rts"], None, "float64 RTS"),
+        ("BP chain variance", var[:N_RTS], sv, GENERIC_TOL["rts"], None, "float64 RTS"),
+        ("BP chain mean", mean, scan.mean, GENERIC_TOL["scan"], None, "LGSSM.smooth scan"),
+        ("BP chain variance", var, scan.variance, GENERIC_TOL["scan"], None,
+         "LGSSM.smooth scan"),
+        ("BP chain mean", mean, unlowered[0], lo_atol, lo_rtol, "lower=False"),
+        ("BP chain variance", var, unlowered[1], lo_atol, lo_rtol, "lower=False"),
+    ):
+        checks.append({"path": name, "against": against, "atol": atol,
+                       "rtol": atol if rtol is None else rtol,
+                       "max_abs_err": check_close(f"{name} vs {against}", got, want, atol, rtol)})
+    atol, rtol = GENERIC_TOL["vmp"]
+    fp = GENERIC_TOL["fixed_point"]
+    for path, got, want, against, (a, r), rows in (
+        ("mean-field VMP", mf, hand, "hand-written sweep", (atol, rtol), R),
+        ("mean-field VMP", mf, mf_cpu, "port on cpu", (atol, rtol), n_cpu),
+        ("structured VMP", st, st_cpu, "port on cpu", (atol, rtol), n_cpu),
+        ("structured VMP", st_fp, st, "iterate", (fp, fp), R),
+    ):
+        errs = {field: check_close(f"{path} {field} vs {against}", g[:rows], w[:rows], a, r)
+                for field, g, w in zip(("E[tau_ss]", "E[tau_obs]", "x means"), got, want)}
+        checks.append({"path": path, "against": against, "atol": a, "rtol": r,
+                       "replicas": rows, "max_abs_err": errs})
+    return checks
+
+
+def _count_kernels(torch, fn) -> dict:
+    """The device kernels (and copies) that one call of ``fn`` launches, and
+    their device time, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    device_us = 0.0
+    for avg in prof.key_averages():
+        us = getattr(avg, "self_device_time_total", 0.0) or getattr(
+            avg, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        device_us += us
+        if avg.key.startswith(("Memcpy", "Memset")):
+            copies += avg.count
+        else:
+            kernels += avg.count
+    return {"kernels": kernels, "copies": copies, "device_ms": device_us / 1e3}
+
+
+def phase_generic_main_path(torch, LGSSM, ops, kernels) -> dict:
+    start = time.perf_counter()
+    for key in kernels.LAUNCHES:
+        kernels.LAUNCHES[key] = 0
+    checks = run_generic_main_path(torch, LGSSM, "cuda", GENERIC_R, GENERIC_T)
+    launches = dict(kernels.LAUNCHES)
+    for check in checks:
+        emit(phase="generic_main_path", R=GENERIC_R, T=GENERIC_T, **check)
+    emit(phase="generic_main_path", launches=launches,
+         note="the generic path runs eager torch operations and none of K1-K4")
+    # Held against K1 too, outside the counted run.
+    y_np, vmp_np = generic_data(GENERIC_R, GENERIC_T)
+    y, data = torch.from_numpy(y_np).cuda(), torch.from_numpy(vmp_np).cuda()
+    paths = GenericPaths(torch, "cuda", GENERIC_T, GENERIC_T)
+    mean, var = paths.bp(y)
+    k1 = ops.lgssm_smooth_fused(y)
+    emit(phase="generic_main_path", path="BP chain", against="lgssm_smooth_fused (K1)",
+         tol=GENERIC_TOL["rts"],
+         max_abs_err_mean=check_close("BP chain mean vs K1", mean, k1.mean, GENERIC_TOL["rts"]),
+         max_abs_err_variance=check_close("BP chain variance vs K1", var, k1.variance,
+                                          GENERIC_TOL["rts"]))
+    counts = {
+        "BP chain sweep": _count_kernels(torch, lambda: paths.bp(y)),
+        f"mean-field VMP, {GENERIC_ITERS} iterations": _count_kernels(
+            torch, lambda: paths.mean_field(data, GENERIC_ITERS)),
+        f"structured VMP, {GENERIC_ITERS} iterations": _count_kernels(
+            torch, lambda: paths.structured(data, GENERIC_ITERS)),
+    }
+    for path, count in counts.items():
+        emit(phase="generic_main_path", path=path, per_call=count, counter="torch.profiler")
+    seconds = time.perf_counter() - start
+    emit(phase="generic_main_path", seconds=seconds)
+    return {"launches": launches, "counts": counts, "seconds": seconds}
+
+
+def phase_generic_times(torch, LGSSM, ops, card: str) -> dict:
+    """CUDA-event medians of the generic paths at the main path's width,
+    beside the scan and K1 (BP) and the hand-written sweep (mean-field VMP),
+    with device time against call time; returns {path: ms}."""
+    start = time.perf_counter()
+    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
+    y_np, vmp_np = generic_data(GENERIC_R, GENERIC_T, seed=5)
+    y, data = torch.from_numpy(y_np).cuda(), torch.from_numpy(vmp_np).cuda()
+    paths = GenericPaths(torch, "cuda", GENERIC_T, GENERIC_T)
+    model = LGSSM()
+    it, it_long = GENERIC_ITERS, GENERIC_ITERS_LONG
+    timed = {
+        "BP generic": (lambda: paths.bp(y), 10),
+        "BP scan": (lambda: model.smooth(y, method="scan"), 10),
+        "BP kernel": (lambda: ops.lgssm_smooth_fused(y), 25),
+        f"mean-field VMP compiled x{it}": (lambda: paths.mean_field(data, it), 5),
+        f"mean-field VMP hand-written x{it}": (lambda: handwritten_mean_field(torch, data, it), 5),
+        f"structured VMP x{it}": (lambda: paths.structured(data, it), 5),
+        f"structured VMP x{it_long}": (lambda: paths.structured(data, it_long), 3),
+    }
+    ms = {}
+    # Each pair in turns A/B/A/B, as bench.py:392-397 times the VMP paths.
+    for pair in (("BP generic", "BP scan", "BP kernel"),
+                 (f"mean-field VMP compiled x{it}", f"mean-field VMP hand-written x{it}"),
+                 (f"structured VMP x{it}", f"structured VMP x{it_long}")):
+        samples = {name: [] for name in pair}
+        for name in pair + pair:
+            fn, runs = timed[name]
+            samples[name].append(median_ms(torch, fn, flush, runs=runs, warmup=1))
+        for name, rounds in samples.items():
+            ms[name] = statistics.mean(rounds)
+            device = _count_kernels(torch, timed[name][0])
+            emit(phase="generic_times", R=GENERIC_R, T=GENERIC_T, path=name, ms=ms[name],
+                 ms_rounds=rounds, device_ms=device["device_ms"],
+                 host_share=1.0 - device["device_ms"] / ms[name], kernels_per_call=device["kernels"],
+                 card=card)
+            ms[f"{name} device"] = device["device_ms"]
+    steady = (ms[f"structured VMP x{it_long}"] - ms[f"structured VMP x{it}"]) / (it_long - it)
+    warm = ms[f"structured VMP x{it}"] - (it - 1) * steady
+    derived = {
+        "bp_ratio_vs_scan": ms["BP generic"] / ms["BP scan"],
+        "bp_ratio_vs_kernel": ms["BP generic"] / ms["BP kernel"],
+        "bp_message_updates_per_s": GENERIC_R * (3 * GENERIC_T - 2) / (ms["BP generic"] / 1e3),
+        "vmp_us_per_iteration_compiled": ms[f"mean-field VMP compiled x{it}"] / it * 1e3,
+        "vmp_us_per_iteration_handwritten": ms[f"mean-field VMP hand-written x{it}"] / it * 1e3,
+        "vmp_ratio_vs_handwritten": (ms[f"mean-field VMP compiled x{it}"]
+                                     / ms[f"mean-field VMP hand-written x{it}"]),
+        "structured_warm_start_us": warm * 1e3,
+        "structured_steady_iteration_us": steady * 1e3,
+        "structured_joint_updates_per_s": GENERIC_R * (GENERIC_T - 1) / (steady / 1e3),
+    }
+    emit(phase="generic_times", R=GENERIC_R, T=GENERIC_T, **derived, card=card,
+         seconds=time.perf_counter() - start)
+    return {**ms, **derived}
+
+
 def main() -> None:
     import torch
 
@@ -935,6 +1238,8 @@ def main() -> None:
     times = phase_times(torch, LGSSM, ops, device["nvidia_smi"])
     hmm_times = phase_hmm_times(torch, HMM, kernels_hmm, device["nvidia_smi"])
     hgf_times = phase_hgf_times(torch, models, kernels_hgf, device["nvidia_smi"])["all five f32"]
+    phase_generic_main_path(torch, LGSSM, ops, kernels)
+    phase_generic_times(torch, LGSSM, ops, device["nvidia_smi"])
     hmm_source = "cortex_tpu_torch/csrc/hmm_forward_backward.cu"
     print(json.dumps({"kernels": [
         {

@@ -1,8 +1,8 @@
 """Carry model parameters, smoother operators, priors and states across from numpy.
 
 These take what the JAX package produces, as plain Python or numpy values
-(``dataclasses.asdict`` of a model, ``np.asarray`` of arrays), and return the
-port's objects, so the two packages compute the same thing on the same
+(``dataclasses.asdict`` of a model or a distribution, ``np.asarray`` of
+arrays), and return the port's objects, so the two packages compute the same thing on the same
 inputs.  They import neither package's arrays: numpy is the common ground.
 Those that make tensors put them on the card unless the caller names
 another ``device``.
@@ -10,11 +10,14 @@ another ``device``.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple
+import dataclasses
+
+from typing import Any, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import dists
 from .models.hgf import HGF, HGFState
 from .models.hgf_binary import BinaryHGF, BinaryHGFState
 from .models.hmm import HMM, HMMVMPState
@@ -24,6 +27,8 @@ from .ops.kernels_hgf import PARAMS as HGF_PARAMS
 __all__ = [
     "binary_hgf_from_numpy",
     "binary_hgf_state_from_numpy",
+    "dist_from_numpy",
+    "dists_from_numpy",
     "hgf_from_numpy",
     "hgf_state_from_numpy",
     "hmm_from_numpy",
@@ -122,3 +127,35 @@ def binary_hgf_state_from_numpy(state: Sequence[object], device="cuda") -> Binar
     """A :class:`BinaryHGFState` from its four arrays ``(mu2, pi2, mu3,
     pi3)``, on ``device`` in the arrays' own dtype."""
     return BinaryHGFState(*(torch.tensor(np.asarray(a), device=device) for a in state))
+
+
+DISTRIBUTIONS = ("Gaussian", "MvGaussian", "Beta", "Gamma", "Bernoulli", "Categorical",
+                 "Dirichlet")
+
+
+def dist_from_numpy(name: str, fields: Mapping[str, object], device="cuda"):
+    """The port's distribution of class ``name`` (one of
+    :data:`DISTRIBUTIONS`) from its fields (for example
+    ``dataclasses.asdict`` of a JAX ``Gaussian``), as tensors on ``device``
+    in the arrays' own dtype.  Another class or other fields raise."""
+    if name not in DISTRIBUTIONS:
+        raise ValueError(f"not a distribution of the compiled path: {name!r}")
+    cls = getattr(dists, name)
+    expected = {f.name for f in dataclasses.fields(cls)}
+    if set(fields) != expected:
+        raise ValueError(f"{name} has fields {sorted(expected)}, got {sorted(fields)}")
+    return cls(**{k: torch.tensor(np.asarray(v), device=device) for k, v in fields.items()})
+
+
+def dists_from_numpy(values: Sequence[Any], device="cuda") -> List[Any]:
+    """A list of values (for example ``CompiledInference.initial_state()``
+    or the state that ``iterate`` returns), each a ``(name, fields)`` pair
+    for :func:`dist_from_numpy` or an array, which becomes a tensor on
+    ``device`` in its own dtype."""
+    out = []
+    for v in values:
+        if isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], str):
+            out.append(dist_from_numpy(v[0], v[1], device=device))
+        else:
+            out.append(torch.tensor(np.asarray(v), device=device))
+    return out

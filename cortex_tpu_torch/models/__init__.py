@@ -6,6 +6,9 @@ from .hgf import HGF, HGFState, HGFTrajectory
 from .hgf_binary import BinaryHGF, BinaryHGFState, BinaryHGFTrajectory
 from .hmm import HMM, HMMVMPResult, HMMVMPState
 from .lgssm import LGSSM
+from .lgssm_graph import LGSSMChainBatched, LGSSMChainDynamic, ScalarNormal, make_chain_graph
+from .structured_graph import StructuredSSMBatched, make_structured_ssm_graph
+from .vmp_graph import MeanFieldSSMBatched, make_mean_field_ssm_graph
 
 __all__ = [
     "LGSSM",
@@ -23,4 +26,12 @@ __all__ = [
     "fit_lgssm_ml",
     "fit_lgssm_em",
     "fit_hgf_ml",
+    "LGSSMChainBatched",
+    "LGSSMChainDynamic",
+    "ScalarNormal",
+    "make_chain_graph",
+    "MeanFieldSSMBatched",
+    "make_mean_field_ssm_graph",
+    "StructuredSSMBatched",
+    "make_structured_ssm_graph",
 ]

@@ -65,6 +65,14 @@ def _neg_log_evidence(params: LGSSMParams, y: torch.Tensor, prior) -> torch.Tens
     return -torch.mean(torch.stack(lls).sum(0))
 
 
+def _trace(values, like: torch.Tensor) -> torch.Tensor:
+    """The scalars ``values`` as one tensor; shape (0,) when there are none,
+    as JAX's scan gives it for zero steps."""
+    if not values:
+        return torch.zeros(0, dtype=like.dtype, device=like.device)
+    return torch.stack(values)
+
+
 def _adam(loss_fn, init: Sequence[torch.Tensor], n_steps: int, learning_rate: float):
     """Adam from ``init`` for ``n_steps``: the final parameters (detached)
     and the loss before each step, ``(n_steps,)``."""
@@ -77,7 +85,7 @@ def _adam(loss_fn, init: Sequence[torch.Tensor], n_steps: int, learning_rate: fl
         loss.backward()
         opt.step()
         losses.append(loss.detach())
-    return [p.detach() for p in params], torch.stack(losses)
+    return [p.detach() for p in params], _trace(losses, init[0])
 
 
 def fit_lgssm_ml(
@@ -154,7 +162,7 @@ def fit_lgssm_em(
         R_new = torch.sum((yT - m_s) ** 2 + v_s) / n_obs
         params = LGSSMParams(A_new, torch.log(Q_new), torch.log(R_new))
         lls.append(ll)
-    return params, torch.stack(lls)
+    return params, _trace(lls, y)
 
 
 def fit_hgf_ml(

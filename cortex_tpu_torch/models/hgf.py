@@ -124,6 +124,9 @@ class HGF(nn.Module):
             pred_var = 1.0 / pihat1 + 1.0 / self.pi_u
             lls.append(-0.5 * (torch.log(2.0 * math.pi * pred_var) + (u_t - mu1) ** 2 / pred_var))
             state, _ = self.step(state, u_t)
+        if not lls:  # T = 0: the empty sum, as JAX's scan gives it
+            return torch.zeros(torch.broadcast_shapes(state[0].shape, uT.shape[1:]),
+                               dtype=u.dtype, device=u.device)
         return torch.stack(lls).sum(0)
 
     def filter(
@@ -173,4 +176,8 @@ class HGF(nn.Module):
             step = dict(zip(ALL_TRACKS, (*state, delta1)))
             for name, out in emitted.items():
                 out.append(step[name])
+        if uT.shape[0] == 0:  # T = 0: empty tracks, as JAX's scan gives them
+            empty = torch.broadcast_shapes(state[0].shape, uT.shape[1:]) + (0,)
+            return state, to_traj(tuple(
+                torch.empty(empty, dtype=state[0].dtype, device=u.device) for _ in tracks))
         return state, to_traj(tuple(torch.stack(emitted[n], dim=-1) for n in tracks))

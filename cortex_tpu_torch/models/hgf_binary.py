@@ -111,4 +111,8 @@ class BinaryHGF(nn.Module):
         for u_t in uT:
             state, p_hat = self.step(state, u_t)
             traj.append((p_hat, *state))
+        if not traj:  # T = 0: five empty tracks, as JAX's scan gives them
+            empty = torch.broadcast_shapes(state[0].shape, uT.shape[1:]) + (0,)
+            return state, BinaryHGFTrajectory(*(
+                torch.empty(empty, dtype=u.dtype, device=u.device) for _ in range(5)))
         return state, BinaryHGFTrajectory(*(torch.stack(a, dim=-1) for a in zip(*traj)))

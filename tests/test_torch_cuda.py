@@ -15,6 +15,9 @@ sums the pairwise counts inside its backward pass: gamma atol 1e-5 and
 log-evidence rtol 1e-5 (the bars of tests/test_pallas_kernels.py), xi_sum
 rtol = atol = 1e-4.  The HGF kernel rounds each operation as its plain
 version does: 1e-5 (tests/test_hgf.py's bar), bf16 tracks within one ulp.
+The generic compiled path runs plain torch operations on the card; the BP
+chain and the mean-field VMP graph are held against the same calls on the
+CPU at 1e-5 and rtol 1e-4 (atol 1e-6).
 """
 
 import importlib.util
@@ -332,3 +335,32 @@ def test_chip_smoke_hgf_main_path_on_card(cuda):
     checks = smoke.run_hgf_main_path(torch, models, ops, parallel, "cuda", R=300, T=64, chunk=16)
     assert kernels.LAUNCHES["hgf_filter"] == launches + 2
     assert any(c["path"] == "HGF.filter fused" for c in checks)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.cuda
+def test_generic_chain_and_vmp_graph_on_card_match_the_cpu(cuda):
+    smoke = _chip_smoke()
+    y_np, data_np = smoke.generic_data(300, 40)
+    card, cpu = smoke.GenericPaths(torch, cuda, 40, 40), smoke.GenericPaths(torch, "cpu", 40, 40)
+    y, data = torch.from_numpy(y_np), torch.from_numpy(data_np)
+    for got, want in zip(card.bp(y.to(cuda)), cpu.bp(y)):
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for got, want in zip(card.mean_field(data.to(cuda), 4), cpu.mean_field(data, 4)):
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_chip_smoke_generic_main_path_on_card(cuda):
+    before = dict(kernels.LAUNCHES)
+    checks = _chip_smoke().run_generic_main_path(torch, LGSSM, "cuda", R=500, T=30, n_cpu=64)
+    assert len(checks) == 10
+    assert kernels.LAUNCHES == before  # the generic path runs none of K1-K4

@@ -76,3 +76,20 @@ def test_fit_hgf_ml_matches_jax():
     _close(omega, want_omega)
     _close(theta, want_theta)
     assert not omega.requires_grad and not theta.requires_grad
+
+
+# -- zero steps: JAX's scan returns an empty loss trace ----------------------------
+
+
+@pytest.mark.parametrize("fit", ["fit_lgssm_ml", "fit_lgssm_em", "fit_hgf_ml"])
+def test_zero_steps_give_the_empty_trace_of_jax(fit):
+    y = np.random.default_rng(0).normal(size=(2, 5)).astype(np.float32)
+    kw = {"n_iters": 0} if fit == "fit_lgssm_em" else {"n_steps": 0}
+    port = {"fit_lgssm_ml": fit_lgssm_ml, "fit_lgssm_em": fit_lgssm_em,
+            "fit_hgf_ml": fit_hgf_ml}[fit]
+    params, losses = port(torch.from_numpy(y), **kw)
+    jparams, jlosses = getattr(jfit, fit)(jnp.asarray(y), **kw)
+    assert tuple(losses.shape) == np.asarray(jlosses).shape == (0,)
+    assert losses.numpy().dtype == np.asarray(jlosses).dtype
+    for got, want in zip(params, jparams):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)

@@ -267,3 +267,43 @@ def test_chip_smoke_hgf_main_path_rehearses_on_cpu():
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(tracks["delta1"], np.asarray(want_traj.prediction_error),
                                rtol=1e-4, atol=1e-4)
+
+
+# -- zero-length series: JAX's scan returns empty results ----------------------
+
+
+def _shape_and_dtype(port, ref):
+    assert tuple(port.shape) == np.asarray(ref).shape
+    assert port.numpy().dtype == np.asarray(ref).dtype
+
+
+@pytest.mark.parametrize("tracks", [None, ("mu1",), ("pi2", "delta1"), ()])
+def test_filter_at_zero_steps_matches_jax(tracks):
+    u = np.zeros((3, 0), np.float32)
+    state, traj = HGF().filter(torch.from_numpy(u), method="scan", tracks=tracks)
+    jstate, jtraj = jmodels.HGF().filter(jnp.asarray(u), method="scan", tracks=tracks)
+    for got, want in zip(state, jstate):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for got, want in zip(traj, jtraj):
+        assert (got is None) == (want is None)
+        if got is not None:
+            _shape_and_dtype(got, want)
+
+
+def test_log_likelihood_at_zero_steps_matches_jax():
+    u = np.zeros((3, 0), np.float32)
+    got = HGF().log_likelihood(torch.from_numpy(u))
+    want = jmodels.HGF().log_likelihood(jnp.asarray(u))
+    _shape_and_dtype(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_binary_filter_at_zero_steps_matches_jax():
+    u = np.zeros((3, 0), np.float32)
+    state, traj = BinaryHGF().filter(torch.from_numpy(u))
+    jstate, jtraj = jmodels.BinaryHGF().filter(jnp.asarray(u))
+    for got, want in zip(state, jstate):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(traj) == len(jtraj) == 5
+    for got, want in zip(traj, jtraj):
+        _shape_and_dtype(got, want)
