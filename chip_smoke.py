@@ -1,12 +1,14 @@
-"""Drive the PyTorch port's LGSSM smoothing, HMM and HGF paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on an NVIDIA GPU: LGSSM, HMM, HGF,
+the generic compiled path, the Gaussian mixtures and the vector chains.
 
 Run from the root of a checkout, with one CUDA card::
 
     python3 chip_smoke.py
 
 It imports nothing of JAX: its references are a float64 numpy RTS smoother,
-a float64 numpy log-space forward-backward, a float64 numpy HGF and the
-port's own plain versions.  Phases, each printing JSON lines:
+a float64 numpy log-space forward-backward, a float64 numpy HGF, float64
+numpy VB-GMMs, a float64 numpy vector Kalman filter and RTS smoother, and
+the port's own plain versions and CPU runs.  Phases, each printing JSON lines:
 
 1. ``device``: the card's name and ``nvidia-smi``'s name and power limit.
 2. ``build``: builds the CUDA kernels from ``cortex_tpu_torch/csrc`` with
@@ -58,6 +60,23 @@ port's own plain versions.  Phases, each printing JSON lines:
     per VMP iteration beside the hand-written sweep, the structured warm
     start and steady iteration, and each path's device time against its
     call time (the host's share).
+14. ``gmm_main_path``: at 8,192 replicas x 256 points, D=2, K=4, 4 VMP
+    iterations (the JAX bench's ``ladder.gmm``), ``GMM.fit`` and
+    ``GMMFull.fit`` against float64 numpy VB-GMMs and the CPU, their free
+    energies non-increasing; ``bethe_free_energy_chain`` at 10,000 x 100
+    against a float64 prediction-error sum; K1-K4's counts (all 0).
+15. ``gmm_times``: per VMP iteration of both models, call and device time,
+    the host's share, kernels, responsibility updates per second, beside a
+    matched-traffic probe and the bound.
+16. ``mv_main_path``: ``MvLGSSM`` at d=4 x 4,096 and d=16 x 1,024 replicas,
+    T=100 (the JAX bench's ``ladder.mv``): every smoothing method and the
+    operator's matmul against a float64 RTS, ``filter`` and
+    ``log_evidence`` against a float64 Kalman filter, per-component NaN gaps
+    against the CPU; ``robust_lgssm_smooth`` at 10,000 x 100 and
+    ``fit_mv_lgssm_ml`` against the CPU; K1-K4's counts (all 0).
+17. ``mv_times``: each method's call and device time, host share and kernels
+    a sweep at both shapes, ``auto_method``'s pick beside the fastest
+    recursion, and ``_solve_small_logdet`` beside ``torch.linalg.solve``.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 A failed check raises: the exit code is non-zero and the last line is not
@@ -189,6 +208,45 @@ N_CPU = 256  # replicas of the VMP graphs held against the port's CPU run
 # means near 0); fixed_point against iterate at 1e-5.
 GENERIC_TOL = {"rts": 2e-4, "scan": 1e-5, "lowered": (1e-7, 1e-6), "vmp": (1e-6, 1e-4),
                "fixed_point": 1e-5}
+
+# The Gaussian-mixture path at the width of the JAX bench's ladder.gmm
+# (bench.py:661): R=8,192 replicas of N=256 points in D=2, K=4 components, 4
+# VMP iterations; data normal + 3 randint(0, K) per point.  The first 64
+# replicas are held against the float64 numpy VB-GMMs and the port's CPU run.
+GMM_R, GMM_N, GMM_D, GMM_K, GMM_ITERS = 8192, 256, 2, 4, 4
+N_GMM = 64
+# (atol, rtol) of the card's float32 fits against the float64 VB-GMMs and
+# against the port's CPU run (another float32 rounding): 1e-4, the bar the
+# CPU tests hold the port to against JAX (tests/test_torch_gmm.py).
+# run_gmm_main_path, on the CPU at R=512 and on an H100 at full width, kept
+# the float32 fits within 9.2e-6 of float64 on the responsibilities and
+# 1.1e-6 relative on the free energy.  A free-energy step may rise by
+# float32 rounding of the trace only: 1e-5 of its magnitude (on the H100 the
+# smallest fall of a step was 0.015, on traces of ~1,200).
+GMM_TOL = {"float64": (1e-4, 1e-4), "cpu": (1e-4, 1e-4)}
+GMM_MONOTONE_RTOL = 1e-5
+
+# The vector chains at the width of the JAX bench's ladder.mv (bench.py:
+# 735-741): d=4 at 4,096 replicas and d=16 at 1,024, T=100; A=0.9 I, Q = H =
+# R = P0 = I, m0 = 0, y the cumsum of normals.  64 replicas are held against
+# a float64 numpy Kalman filter and RTS smoother.
+MV_SHAPES, MV_T, N_MV = ((4, 4096), (16, 1024)), 100, 64
+# (atol = rtol) against the float64 RTS, by method: assoc 5e-3 and sqrt 1e-3
+# are the bars of tests/test_chains_mv.py:64 and tests/test_sqrt_kalman.py:
+# 98; scan, blocked and matmul 2e-4 (the blocked-vs-scan bar,
+# tests/test_chains_mv.py:243; test_chains_mv.py:215's 1e-6 at T=30 on
+# unit-scale data lies below float32 rounding of this data, |y| up to ~40).
+MV_TOL = {"scan": 2e-4, "blocked": 2e-4, "assoc": 5e-3, "matmul": 2e-4, "sqrt": 1e-3}
+# The filter and log evidence against the float64 filter: the bars of
+# tests/test_mv_filter_evidence.py:56-58 (means 2e-3, covariances 5e-3 /
+# 2e-3, evidence rtol 1e-4); card against CPU runs of the same float32
+# operations (NaN gaps, robust smoother, the ML fit's loss trace): 1e-4.
+# run_mv_main_path, on the CPU at 64 replicas and on an H100 at full width,
+# kept every smoother within 7.6e-6 of the float64 RTS on the means and the
+# evidence within 1e-7 relative.
+MV_FILTER_TOL = {"mean": 2e-3, "cov": (2e-3, 5e-3), "log_evidence": 1e-4}
+MV_CPU_TOL = 1e-4
+MV_FIT_R, MV_FIT_STEPS = 4096, 3
 
 # Data-sheet rates of the H100 SXM (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s and float32 operations/s outside the tensor cores.
@@ -1105,28 +1163,35 @@ def run_generic_main_path(torch, LGSSM, device, R: int, T: int,
 
 
 def _count_kernels(torch, fn) -> dict:
-    """The device kernels (and copies) that one call of ``fn`` launches, and
-    their device time, from ``torch.profiler``."""
+    """The device kernels (and copies) that one call of ``fn`` launches,
+    their device time, and the five kernels that take the most of it (name
+    cut to 100 characters, ms, launches), from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = copies = 0
-    device_us = 0.0
-    for avg in prof.key_averages():
-        us = getattr(avg, "self_device_time_total", 0.0) or getattr(
-            avg, "self_cuda_time_total", 0.0)
-        if us <= 0:
-            continue
-        device_us += us
-        if avg.key.startswith(("Memcpy", "Memset")):
-            copies += avg.count
-        else:
-            kernels += avg.count
-    return {"kernels": kernels, "copies": copies, "device_ms": device_us / 1e3}
+    for _ in range(2):  # a profile now and then holds no kernel record: one more
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = copies = 0
+        device_us = 0.0
+        named = []
+        for avg in prof.key_averages():
+            us = getattr(avg, "self_device_time_total", 0.0) or getattr(
+                avg, "self_cuda_time_total", 0.0)
+            if us <= 0:
+                continue
+            device_us += us
+            named.append([avg.key[:100], us / 1e3, avg.count])
+            if avg.key.startswith(("Memcpy", "Memset")):
+                copies += avg.count
+            else:
+                kernels += avg.count
+        if kernels:
+            break
+    top = sorted(named, key=lambda item: -item[1])[:5]
+    return {"kernels": kernels, "copies": copies, "device_ms": device_us / 1e3, "top": top}
 
 
 def phase_generic_main_path(torch, LGSSM, ops, kernels) -> dict:
@@ -1220,6 +1285,509 @@ def phase_generic_times(torch, LGSSM, ops, card: str) -> dict:
     return {**ms, **derived}
 
 
+# -- The Gaussian-mixture slice (phases 14, 15) -------------------------------------
+
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def gmm_data(R: int, N: int, D: int, K: int, seed: int = 0):
+    """``normal + 3·randint(0, K)`` per point, as the JAX bench's ladder.gmm
+    makes its data: float32 (R, N, D), the offset shared by a point's D
+    coordinates."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(R, N, D)) + 3.0 * rng.integers(0, K, size=(R, N, 1))
+    return x.astype(np.float32)
+
+
+def _numpy_responsibilities(log_rho):
+    top = log_rho.max(-1, keepdims=True)
+    log_r = log_rho - top - np.log(np.exp(log_rho - top).sum(-1, keepdims=True))
+    return np.exp(log_r), log_r
+
+
+def numpy_vb_gmm(x, K, init_means, n_iterations, alpha0=1.0, m0=0.0, beta0=1.0, a0=1.0,
+                 b0=1.0):
+    """Float64 variational Bayesian GMM with diagonal Normal–Gamma components
+    (Bishop §10.2): the E-step and M-step of every iteration, then the
+    closed-form free energy.  ``x`` (n, N, D).  Returns ``((alpha, m, beta,
+    a, b), r, free_energy)``, the trace (n, n_iterations)."""
+    from scipy.special import digamma, gammaln
+
+    x = np.asarray(x, np.float64)
+    n, N, D = x.shape
+    alpha = np.full((n, K), alpha0)
+    m = np.array(init_means, np.float64)
+    beta, a, b = (np.full((n, K, D), v) for v in (beta0, a0, b0))
+    r, fes = np.zeros((n, N, K)), []
+    for _ in range(n_iterations):
+        e_log_pi = digamma(alpha) - digamma(alpha.sum(-1, keepdims=True))
+        e_log_tau, e_tau = digamma(a) - np.log(b), a / b
+        quad = (e_tau[:, None] * (x[:, :, None] - m[:, None]) ** 2 + 1.0 / beta[:, None]).sum(-1)
+        r, log_r = _numpy_responsibilities(
+            e_log_pi[:, None] + 0.5 * e_log_tau.sum(-1)[:, None] - 0.5 * D * _LOG_2PI
+            - 0.5 * quad)
+        Nk = r.sum(1) + 1e-10
+        xbar = np.einsum("nik,nid->nkd", r, x) / Nk[..., None]
+        S = np.einsum("nik,nikd->nkd", r, (x[:, :, None] - xbar[:, None]) ** 2) / Nk[..., None]
+        alpha = alpha0 + Nk
+        beta = np.broadcast_to(beta0 + Nk[..., None], xbar.shape)
+        m = (beta0 * m0 + Nk[..., None] * xbar) / beta
+        a = np.broadcast_to(a0 + 0.5 * Nk[..., None], xbar.shape)
+        b = b0 + 0.5 * (Nk[..., None] * S + beta0 * Nk[..., None] * (xbar - m0) ** 2 / beta)
+        # The free energy -ELBO of (r, the updated posterior).
+        e_log_pi = digamma(alpha) - digamma(alpha.sum(-1, keepdims=True))
+        e_log_tau, e_tau = digamma(a) - np.log(b), a / b
+        quad = (e_tau[:, None] * (x[:, :, None] - m[:, None]) ** 2 + 1.0 / beta[:, None]).sum(-1)
+        a_sum = alpha.sum(-1)
+        elbo = (
+            0.5 * (r * (e_log_tau.sum(-1)[:, None] - D * _LOG_2PI - quad)).sum((1, 2))
+            + (r * e_log_pi[:, None]).sum((1, 2))
+            + gammaln(K * alpha0) - K * gammaln(alpha0) + (alpha0 - 1.0) * e_log_pi.sum(-1)
+            + (0.5 * (np.log(beta0) - _LOG_2PI + e_log_tau)
+               - 0.5 * beta0 * (e_tau * (m - m0) ** 2 + 1.0 / beta)
+               + a0 * np.log(b0) - gammaln(a0) + (a0 - 1.0) * e_log_tau - b0 * e_tau).sum((1, 2))
+            - (r * log_r).sum((1, 2))
+            + gammaln(alpha).sum(-1) - gammaln(a_sum)
+            - ((alpha - 1.0) * (digamma(alpha) - digamma(a_sum)[:, None])).sum(-1)
+            + (0.5 * (1.0 + _LOG_2PI - e_log_tau - np.log(beta))
+               + a - np.log(b) + gammaln(a) + (1.0 - a) * digamma(a)).sum((1, 2))
+        )
+        fes.append(-elbo)
+    return (alpha, m, beta, a, b), r, np.stack(fes, -1) if fes else np.zeros((n, 0))
+
+
+def numpy_vb_gmm_full(x, K, init_means, n_iterations, alpha0=1.0, beta0=1.0, m0=0.0,
+                      w0_scale=1.0):
+    """Float64 variational Bayesian GMM with Normal–Wishart components
+    (Bishop eqs. 10.46-10.63 and the free energy of 10.70-10.77), ν0 = D.
+    Returns ``((alpha, m, beta, W, nu), r, free_energy)``."""
+    from scipy.special import digamma, gammaln
+
+    x = np.asarray(x, np.float64)
+    n, N, D = x.shape
+    nu0, W0_inv = float(D), np.eye(D) / w0_scale
+    i = np.arange(1, D + 1)
+
+    def e_logdet(nu, W):
+        return (digamma((nu[..., None] + 1.0 - i) / 2.0).sum(-1) + D * math.log(2.0)
+                + np.linalg.slogdet(W)[1])
+
+    def log_B(W, nu):
+        multigammaln = D * (D - 1) / 4.0 * math.log(math.pi) + gammaln(
+            nu[..., None] / 2.0 + (1.0 - i) / 2.0).sum(-1)
+        return -0.5 * nu * np.linalg.slogdet(W)[1] - 0.5 * nu * D * math.log(2.0) - multigammaln
+
+    alpha, beta, nu = np.full((n, K), alpha0), np.full((n, K), beta0), np.full((n, K), nu0)
+    m = np.array(init_means, np.float64)
+    W = np.broadcast_to(w0_scale * np.eye(D), (n, K, D, D))
+    r, fes = np.zeros((n, N, K)), []
+    for _ in range(n_iterations):
+        e_log_pi = digamma(alpha) - digamma(alpha.sum(-1, keepdims=True))
+        diff = x[:, :, None] - m[:, None]
+        quad = nu[:, None] * np.einsum("nikd,nkde,nike->nik", diff, W, diff) + D / beta[:, None]
+        r, log_r = _numpy_responsibilities(
+            e_log_pi[:, None] + 0.5 * e_logdet(nu, W)[:, None] - 0.5 * D * _LOG_2PI - 0.5 * quad)
+        Nk = r.sum(1) + 1e-10
+        xbar = np.einsum("nik,nid->nkd", r, x) / Nk[..., None]
+        dxb = x[:, :, None] - xbar[:, None]
+        S = np.einsum("nik,nikd,nike->nkde", r, dxb, dxb) / Nk[..., None, None]
+        alpha, beta, nu = alpha0 + Nk, beta0 + Nk, nu0 + Nk
+        m = (beta0 * m0 + Nk[..., None] * xbar) / beta[..., None]
+        dm = xbar - m0
+        shrink = (beta0 * Nk / beta)[..., None, None]
+        W = np.linalg.inv(W0_inv + Nk[..., None, None] * S
+                          + shrink * dm[..., :, None] * dm[..., None, :])
+        # The free energy -ELBO of (r, the updated posterior).
+        e_log_pi = digamma(alpha) - digamma(alpha.sum(-1, keepdims=True))
+        eld = e_logdet(nu, W)
+        dxm, dm0 = xbar - m, m - m0
+        trace = lambda P, M: np.einsum("...kde,...ked->...k", P, M)  # noqa: E731
+        quad_form = lambda v, M: np.einsum("...kd,...kde,...ke->...k", v, M, v)  # noqa: E731
+        t1 = 0.5 * (Nk * (eld - D / beta - nu * trace(S, W) - nu * quad_form(dxm, W)
+                          - D * _LOG_2PI)).sum(-1)
+        t2 = (r * e_log_pi[:, None]).sum((1, 2))
+        t3 = gammaln(K * alpha0) - K * gammaln(alpha0) + (alpha0 - 1.0) * e_log_pi.sum(-1)
+        t4 = (0.5 * (D * math.log(beta0 / (2.0 * math.pi)) + eld - D * beta0 / beta
+                     - beta0 * nu * quad_form(dm0, W)).sum(-1)
+              + K * log_B(w0_scale * np.eye(D), np.array(nu0))
+              + 0.5 * (nu0 - D - 1.0) * eld.sum(-1)
+              - 0.5 * (nu * np.einsum("de,nked->nk", W0_inv, W)).sum(-1))
+        t5 = (r * log_r).sum((1, 2))
+        t6 = ((alpha - 1.0) * e_log_pi).sum(-1) + gammaln(alpha.sum(-1)) - gammaln(alpha).sum(-1)
+        h_w = -log_B(W, nu) - 0.5 * (nu - D - 1.0) * eld + 0.5 * nu * D
+        t7 = (0.5 * eld + 0.5 * D * np.log(beta / (2.0 * math.pi)) - 0.5 * D - h_w).sum(-1)
+        fes.append(-(t1 + t2 + t3 + t4 - t5 - t6 - t7))
+    return (alpha, m, beta, W, nu), r, np.stack(fes, -1) if fes else np.zeros((n, 0))
+
+
+def numpy_bethe_chain(y, Q=1.0, A=1.0, R=1.0):
+    """Float64 −log p(y_2..T | y_1) of the scalar chain over the rows of ``y``
+    (n, T), by the prediction-error decomposition from the filtered belief
+    of ``y_1`` alone."""
+    y = np.asarray(y, np.float64)
+    m, v, ll = y[:, 0].copy(), np.full(y.shape[0], R), np.zeros(y.shape[0])
+    for t in range(1, y.shape[1]):
+        pm, pv = A * m, A * A * v + Q
+        s = pv + R
+        ll -= 0.5 * (np.log(2.0 * math.pi * s) + (y[:, t] - pm) ** 2 / s)
+        m, v = pm + pv / s * (y[:, t] - pm), pv - pv / s * pv
+    return -ll
+
+
+def _kernel_launches_zero(kernels):
+    for key in kernels.LAUNCHES:
+        kernels.LAUNCHES[key] = 0
+
+
+def _check_no_kernel_launched(kernels, phase: str) -> dict:
+    launches = dict(kernels.LAUNCHES)
+    emit(phase=phase, launches=launches, note="this path runs eager torch operations and "
+         "none of K1-K4")
+    if any(launches.values()):
+        raise SmokeFailure(f"{phase} launched a kernel of K1-K4: {launches}")
+    return launches
+
+
+def run_gmm_main_path(torch, models, ops, device, R: int, N: int, D: int = GMM_D,
+                      K: int = GMM_K, n_iterations: int = GMM_ITERS, n_ref: int = N_GMM,
+                      chain=(R_MAIN, T_MAIN), seed: int = 0) -> list:
+    """Drive the port's Gaussian-mixture slice once on ``device`` through its
+    public entry points, and check every result.
+
+    ``GMM.fit`` and ``GMMFull.fit`` on R replicas of N points (initial means
+    the first K points of each replica) are held against the float64 numpy
+    VB-GMMs and against the port's CPU run on the first ``n_ref`` replicas
+    (GMM_TOL), their free energies against GMM_MONOTONE_RTOL on every
+    replica; ``bethe_free_energy_chain`` on the LGSSM main path's data
+    (``chain``: R, T) against the float64 prediction-error sum (rtol 1e-4,
+    the bar of tests/test_free_energy.py).  Returns the checks."""
+    from cortex_tpu_torch.ops.free_energy import bethe_free_energy_chain
+
+    x_np = gmm_data(R, N, D, K, seed)
+    x = torch.from_numpy(x_np).to(device)
+    families = {"GMM": (models.GMM, numpy_vb_gmm), "GMMFull": (models.GMMFull, numpy_vb_gmm_full)}
+    fits = {name: cls(K=K).fit(x, n_iterations=n_iterations, init_means=x[:, :K])
+            for name, (cls, _) in families.items()}
+    y_np = random_walk(*chain, seed=seed + 1)
+    xi, w = ops.lgssm_messages_scan(torch.from_numpy(y_np).to(device))["obs"]
+    bethe = bethe_free_energy_chain(xi, w, Q=1.0)
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+    checks = []
+    x_cpu = torch.from_numpy(x_np[:n_ref])
+    for name, (cls, reference) in families.items():
+        res = fits[name]
+        fe = _host64(res.free_energy)
+        if res.responsibilities.shape != (R, N, K) or fe.shape != (R, n_iterations):
+            raise SmokeFailure(f"{name}: shapes {tuple(res.responsibilities.shape)}, {fe.shape}")
+        rise = np.diff(fe, axis=-1) - GMM_MONOTONE_RTOL * np.abs(fe[:, 1:])
+        if not np.isfinite(fe).all() or (rise > 0).any():
+            raise SmokeFailure(f"{name}: the free energy rose by {float(rise.max())} "
+                               f"beyond {GMM_MONOTONE_RTOL} of its magnitude")
+        post_ref, r_ref, fe_ref = reference(x_np[:n_ref], K, x_np[:n_ref, :K], n_iterations)
+        cpu = cls(K=K).fit(x_cpu, n_iterations=n_iterations, init_means=x_cpu[:, :K])
+        for against, want, tol in (
+            ("float64 numpy", (*post_ref, r_ref, fe_ref), GMM_TOL["float64"]),
+            ("port on cpu", (*cpu.posterior, cpu.responsibilities, cpu.free_energy),
+             GMM_TOL["cpu"]),
+        ):
+            fields = res.posterior._fields + ("responsibilities", "free_energy")
+            got = (*res.posterior, res.responsibilities, res.free_energy)
+            errs = {f: check_close(f"{name} {f} vs {against}", g[:n_ref], w_, *tol)
+                    for f, g, w_ in zip(fields, got, want)}
+            checks.append({"path": f"{name}.fit", "against": against, "atol": tol[0],
+                           "rtol": tol[1], "replicas": n_ref, "max_abs_err": errs})
+        checks.append({"path": f"{name}.fit", "against": "non-increasing free energy",
+                       "rtol": GMM_MONOTONE_RTOL, "replicas": R,
+                       "largest_step": float(np.diff(fe, axis=-1).max()),
+                       "fe_first_last_mean": [float(fe[:, 0].mean()), float(fe[:, -1].mean())]})
+    checks.append({"path": "bethe_free_energy_chain", "against": "float64 prediction-error sum",
+                   "rtol": 1e-4, "replicas": chain[0], "T": chain[1],
+                   "max_abs_err": check_close("bethe_free_energy_chain", bethe,
+                                              numpy_bethe_chain(y_np), 0.0, 1e-4)})
+    return checks
+
+
+def phase_gmm_main_path(torch, models, ops, kernels) -> dict:
+    start = time.perf_counter()
+    _kernel_launches_zero(kernels)
+    checks = run_gmm_main_path(torch, models, ops, "cuda", GMM_R, GMM_N)
+    launches = _check_no_kernel_launched(kernels, "gmm_main_path")
+    for check in checks:
+        emit(phase="gmm_main_path", R=GMM_R, N=GMM_N, D=GMM_D, K=GMM_K,
+             iterations=GMM_ITERS, **check)
+    seconds = time.perf_counter() - start
+    emit(phase="gmm_main_path", seconds=seconds)
+    return {"launches": launches, "seconds": seconds}
+
+
+def phase_gmm_times(torch, models, card: str) -> dict:
+    """Per VMP iteration of ``GMM`` and ``GMMFull`` at ladder.gmm's width:
+    call time (CUDA events: five iterations less one, over four), device time
+    and kernels (``torch.profiler``, the same difference), the host's share,
+    responsibility updates per second (R·N·K/t, bench.py:710), beside the
+    matched-traffic probe (read x, write an (R, N, K) array; bench.py:
+    676-685) and the bound (x read once an iteration; also with the
+    responsibilities written once).  Returns {path: value}."""
+    start = time.perf_counter()
+    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
+    R, N, D, K = GMM_R, GMM_N, GMM_D, GMM_K
+    x = torch.from_numpy(gmm_data(R, N, D, K, seed=3)).cuda()
+    init = x[:, :K].contiguous()
+    out = {}
+    for name, cls in (("GMM", models.GMM), ("GMMFull", models.GMMFull)):
+        model = cls(K=K)
+
+        def fit(n):
+            return lambda: model.fit(x, n_iterations=n, init_means=init)
+
+        call = {n: median_ms(torch, fit(n), flush, runs=5, warmup=1) for n in (1, 5)}
+        device = {n: _count_kernels(torch, fit(n)) for n in (1, 5)}
+        per_iter = (call[5] - call[1]) / 4
+        dev_iter = (device[5]["device_ms"] - device[1]["device_ms"]) / 4
+        kernels_iter = (device[5]["kernels"] - device[1]["kernels"]) / 4
+        out[name] = {"ms_per_iteration": per_iter, "device_ms_per_iteration": dev_iter}
+        emit(phase="gmm_times", R=R, N=N, D=D, K=K, model=name, ms_per_iteration=per_iter,
+             device_ms_per_iteration=dev_iter, host_share=1.0 - dev_iter / per_iter,
+             kernels_per_iteration=kernels_iter, fit_ms=call,
+             fit_device_ms={n: c["device_ms"] for n, c in device.items()},
+             resp_updates_per_s=R * N * K / (per_iter / 1e3),
+             top_kernels_5_iterations=device[5]["top"], card=card)
+
+    def probe():
+        return x * 1.000001, x.amax(-1, keepdim=True).expand(R, N, K).contiguous()
+
+    probe_ms = median_ms(torch, probe, flush)
+    probe_device = device_ms(torch, probe, flush)
+    bound = _bound(4 * R * N * D, 0)
+    bound_written = _bound(4 * R * N * (D + K), 0)
+    out["probe"] = {"ms": probe_ms, "device_ms": probe_device}
+    emit(phase="gmm_times", R=R, N=N, D=D, K=K, path="probe", ms=probe_ms,
+         device_ms=probe_device, bound_ms_x_read=bound["bound_ms"],
+         bound_ms_x_read_r_written=bound_written["bound_ms"], bound_by="bytes",
+         device_over_probe={name: out[name]["device_ms_per_iteration"] / probe_device
+                            for name in ("GMM", "GMMFull")} if probe_device else None,
+         card=card, seconds=time.perf_counter() - start)
+    return out
+
+
+# -- The vector chains (phases 16, 17) -------------------------------------------------
+
+
+def mv_model_arrays(d: int):
+    """ladder.mv's model: A = 0.9 I, Q = H = R = P0 = I, m0 = 0."""
+    eye = np.eye(d, dtype=np.float32)
+    return 0.9 * eye, eye, eye, eye, np.zeros(d, np.float32), eye
+
+
+def mv_data(R: int, T: int, d: int, seed: int):
+    """The cumsum over time of standard normals, float32 (R, T, d)."""
+    return np.random.default_rng(seed).normal(size=(R, T, d)).cumsum(axis=1).astype(np.float32)
+
+
+def numpy_kalman_mv(y, A, Q, H, R, m0, P0):
+    """Float64 Kalman filter and RTS smoother of every series of ``y`` (n, T,
+    m), dense, under one model: the covariances do not depend on the data.
+    Returns ``(filtered means (n, T, d), filtered covs (T, d, d), log
+    evidence (n,), smoothed means, smoothed covs)``."""
+    y = np.asarray(y, np.float64)
+    A, Q, H, R, m0, P0 = (np.asarray(a, np.float64) for a in (A, Q, H, R, m0, P0))
+    n, T, _ = y.shape
+    d = A.shape[0]
+    fm, fP, ll = np.empty((n, T, d)), np.empty((T, d, d)), np.zeros(n)
+    mean, P_ = np.broadcast_to(m0, (n, d)), P0
+    for t in range(T):
+        if t:
+            mean, P_ = mean @ A.T, A @ P_ @ A.T + Q
+        S = H @ P_ @ H.T + R
+        S_inv = np.linalg.inv(S)
+        innov = y[:, t] - mean @ H.T
+        ll -= 0.5 * (np.einsum("ni,ij,nj->n", innov, S_inv, innov)
+                     + np.linalg.slogdet(2.0 * math.pi * S)[1])
+        K = P_ @ H.T @ S_inv
+        mean, P_ = mean + innov @ K.T, P_ - K @ S @ K.T
+        fm[:, t], fP[t] = mean, P_
+    sm, sP = fm.copy(), fP.copy()
+    for t in range(T - 2, -1, -1):
+        Pp = A @ fP[t] @ A.T + Q
+        G = fP[t] @ A.T @ np.linalg.inv(Pp)
+        sm[:, t] = fm[:, t] + (sm[:, t + 1] - fm[:, t] @ A.T) @ G.T
+        sP[t] = fP[t] + G @ (sP[t + 1] - Pp) @ G.T
+    return fm, fP, ll, sm, sP
+
+
+def _robust_data(R: int, T: int, seed: int):
+    """A random walk with 1% of the steps shifted by ±15 (outliers) and 2%
+    missing, float32 (R, T)."""
+    rng = np.random.default_rng(seed)
+    y = random_walk(R, T, seed)
+    y += np.where(rng.random((R, T)) < 0.01, 15.0 * rng.choice([-1.0, 1.0], (R, T)), 0.0
+                  ).astype(np.float32)
+    y[rng.random((R, T)) < 0.02] = np.nan
+    return y
+
+
+def run_mv_main_path(torch, models, ops, device, shapes=MV_SHAPES, T: int = MV_T,
+                     n_ref: int = N_MV, robust=(R_MAIN, T_MAIN), fit_R: int = MV_FIT_R,
+                     fit_steps: int = MV_FIT_STEPS, seed: int = 0) -> list:
+    """Drive the port's vector chains once on ``device`` through their public
+    entry points, and check every result.
+
+    For each (d, R) of ``shapes`` at T steps: every ``MvLGSSM.smooth``
+    method, the matmul path through ``mv_lgssm_smoother_operator``, and
+    ``filter`` and ``log_evidence`` against the float64 Kalman filter and
+    RTS smoother on ``n_ref`` replicas (MV_TOL, MV_FILTER_TOL); per-component
+    NaN gaps through scan and blocked against the port's CPU run; then
+    ``robust_lgssm_smooth`` (``robust``: R, T) and ``fit_mv_lgssm_ml``
+    (``fit_steps`` Adam steps on ``fit_R`` replicas at the first d) against
+    the port's CPU run (MV_CPU_TOL).  Returns the checks."""
+    from cortex_tpu_torch.ops.chains_mv import mv_lgssm_smooth_matmul, mv_lgssm_smoother_operator
+
+    checks = []
+    for d, R in shapes:
+        arrays = mv_model_arrays(d)
+        model = models.MvLGSSM.from_arrays(*arrays)
+        y_np = mv_data(R, T, d, seed + d)
+        y = torch.from_numpy(y_np).to(device)
+        outs = {m: model.smooth(y, method=m) for m in ("scan", "blocked", "assoc", "sqrt", "auto")}
+        op = mv_lgssm_smoother_operator(T, *arrays[:4], arrays[4:], device=device)
+        outs["matmul"] = mv_lgssm_smooth_matmul(y, operator=op)
+        filt, evidence = model.filter(y), model.log_evidence(y)
+        rng = np.random.default_rng(seed + 100 + d)
+        y_gaps_np = np.where(rng.random(y_np.shape) < 0.05, np.nan, y_np).astype(np.float32)
+        y_gaps = torch.from_numpy(y_gaps_np).to(device)
+        gapped = {m: model.smooth(y_gaps, method=m) for m in ("scan", "blocked")}
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+        fm, fP, ll, sm, sP = numpy_kalman_mv(y_np[:n_ref], *arrays)
+        sP_all = np.broadcast_to(sP, (n_ref,) + sP.shape)
+        for name, out in outs.items():
+            method = model.auto_method() if name == "auto" else name
+            tol = MV_TOL[method]
+            if tuple(out.mean.shape) != (R, T, d) or not bool(torch.isfinite(out.mean).all()):
+                raise SmokeFailure(f"d={d} {name}: mean not finite of shape ({R}, {T}, {d})")
+            checks.append({
+                "d": d, "R": R, "path": f"smooth {name}" + (f" ({method})" if name == "auto"
+                                                             else ""),
+                "against": "float64 RTS", "tol": tol, "replicas": n_ref,
+                "max_abs_err_mean": check_close(f"d={d} {name} mean", out.mean[:n_ref], sm, tol),
+                "max_abs_err_cov": check_close(f"d={d} {name} cov", out.cov[:n_ref], sP_all, tol),
+            })
+        ctol = MV_FILTER_TOL["cov"]
+        checks.append({
+            "d": d, "R": R, "path": "filter, log_evidence", "against": "float64 Kalman filter",
+            "tol": MV_FILTER_TOL, "replicas": n_ref,
+            "max_abs_err_mean": check_close(f"d={d} filter mean", filt.mean[:n_ref], fm,
+                                            MV_FILTER_TOL["mean"]),
+            "max_abs_err_cov": check_close(f"d={d} filter cov", filt.cov[:n_ref],
+                                           np.broadcast_to(fP, (n_ref,) + fP.shape), *ctol),
+            "max_abs_err_log_evidence": check_close(f"d={d} log_evidence", evidence[:n_ref], ll,
+                                                    0.0, MV_FILTER_TOL["log_evidence"]),
+        })
+        cpu_model = models.MvLGSSM.from_arrays(*arrays)
+        y_gaps_cpu = torch.from_numpy(y_gaps_np[:n_ref])
+        for name, out in gapped.items():
+            want = cpu_model.smooth(y_gaps_cpu, method=name)
+            checks.append({
+                "d": d, "R": R, "path": f"smooth {name}, per-component NaN gaps",
+                "against": "port on cpu", "tol": MV_CPU_TOL, "replicas": n_ref,
+                "max_abs_err_mean": check_close(f"d={d} gaps {name} mean", out.mean[:n_ref],
+                                                want.mean, MV_CPU_TOL),
+                "max_abs_err_cov": check_close(f"d={d} gaps {name} cov", out.cov[:n_ref],
+                                               want.cov, MV_CPU_TOL),
+            })
+
+    y_np = _robust_data(*robust, seed + 7)
+    kw = dict(A=0.95, Q=0.3, R=0.4, nu=4.0, prior=(0.0, 5.0))
+    got = ops.robust_lgssm_smooth(torch.from_numpy(y_np).to(device), **kw)
+    want = ops.robust_lgssm_smooth(torch.from_numpy(y_np[:n_ref]), **kw)
+    checks.append({
+        "path": "robust_lgssm_smooth", "R": robust[0], "T": robust[1], "against": "port on cpu",
+        "tol": MV_CPU_TOL, "replicas": n_ref,
+        "max_abs_err": {f: check_close(f"robust {f}", g[:n_ref], w_, MV_CPU_TOL)
+                        for f, g, w_ in zip(got._fields, got, want)},
+    })
+
+    d = shapes[0][0]
+    H = np.eye(d, dtype=np.float32)
+    y_np = mv_data(fit_R, T, d, seed + 11)
+    _, losses = models.fit_mv_lgssm_ml(torch.from_numpy(y_np).to(device), H=H, d=d,
+                                       n_steps=fit_steps)
+    _, losses_cpu = models.fit_mv_lgssm_ml(torch.from_numpy(y_np), H=H, d=d, n_steps=fit_steps)
+    if not bool(losses[-1] < losses[0]):
+        raise SmokeFailure(f"fit_mv_lgssm_ml: the loss did not fall: {losses.tolist()}")
+    checks.append({"path": "fit_mv_lgssm_ml", "d": d, "R": fit_R, "T": T, "steps": fit_steps,
+                   "against": "port on cpu", "rtol": MV_CPU_TOL, "losses": losses.tolist(),
+                   "max_abs_err": check_close("fit_mv_lgssm_ml losses", losses, losses_cpu, 0.0,
+                                              MV_CPU_TOL)})
+    return checks
+
+
+def phase_mv_main_path(torch, models, ops, kernels) -> dict:
+    start = time.perf_counter()
+    _kernel_launches_zero(kernels)
+    checks = run_mv_main_path(torch, models, ops, "cuda")
+    launches = _check_no_kernel_launched(kernels, "mv_main_path")
+    for check in checks:
+        emit(phase="mv_main_path", **{"T": MV_T, **check})
+    seconds = time.perf_counter() - start
+    emit(phase="mv_main_path", seconds=seconds)
+    return {"launches": launches, "seconds": seconds}
+
+
+def phase_mv_times(torch, models, card: str) -> dict:
+    """Each smoothing method's call time (CUDA events), device time and
+    kernels a sweep (``torch.profiler``) and the host's share at both of
+    ladder.mv's shapes; ``auto_method``'s pick beside the fastest recursion
+    (bench.py:791-803's ``default_vs_best_recursion``, printed, not
+    asserted); ``_solve_small_logdet`` beside one batched
+    ``torch.linalg.solve`` on the scan's innovation systems.  Returns {d:
+    {path: ms}}."""
+    from cortex_tpu_torch.ops import chains_mv
+
+    start = time.perf_counter()
+    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
+    result = {}
+    for d, R in MV_SHAPES:
+        arrays = mv_model_arrays(d)
+        model = models.MvLGSSM.from_arrays(*arrays)
+        y = torch.from_numpy(mv_data(R, MV_T, d, seed=20 + d)).cuda()
+        op = chains_mv.mv_lgssm_smoother_operator(MV_T, *arrays[:4], arrays[4:], device="cuda")
+        paths = {m: (lambda m=m: model.smooth(y, method=m)) for m in
+                 ("scan", "blocked", "assoc", "sqrt")}
+        paths["matmul"] = lambda: chains_mv.mv_lgssm_smooth_matmul(y, operator=op)
+        # The scan's first innovation systems: S = P0 + R (m x m), with the
+        # innovation and P0 Hᵀ as right-hand sides.
+        S = torch.eye(d, device="cuda").expand(R, d, d) * 2.0
+        rhs = torch.cat([y[:, 0, :, None], torch.eye(d, device="cuda").expand(R, d, d)], -1)
+        paths["_solve_small_logdet"] = lambda: chains_mv._solve_small_logdet(S, rhs)
+        paths["torch.linalg.solve"] = lambda: torch.linalg.solve(S, rhs)
+        ms = {}
+        for name, fn in paths.items():
+            once = median_ms(torch, fn, flush, runs=1, warmup=1)
+            runs = 1 if once > 300 else 3 if once > 30 else 10
+            ms[name] = median_ms(torch, fn, flush, runs=runs, warmup=0)
+            count = _count_kernels(torch, fn)
+            ms[f"{name} device"] = count["device_ms"]
+            emit(phase="mv_times", d=d, R=R, T=MV_T, path=name, ms=ms[name], runs=runs,
+                 device_ms=count["device_ms"], host_share=1.0 - count["device_ms"] / ms[name],
+                 kernels_per_call=count["kernels"], copies_per_call=count["copies"],
+                 top_kernels=count["top"], card=card)
+        best = min(("scan", "blocked", "assoc"), key=lambda m: ms[m])
+        pick = model.auto_method()
+        emit(phase="mv_times", d=d, R=R, T=MV_T, auto_method=pick, fastest_recursion=best,
+             default_vs_best_recursion=ms[pick] / ms[best], fastest_overall=min(
+                 ("scan", "blocked", "assoc", "sqrt", "matmul"), key=lambda m: ms[m]),
+             solve_small_vs_library=ms["_solve_small_logdet"] / ms["torch.linalg.solve"],
+             card=card)
+        result[d] = ms
+    emit(phase="mv_times", seconds=time.perf_counter() - start)
+    return result
+
+
 def main() -> None:
     import torch
 
@@ -1240,6 +1808,10 @@ def main() -> None:
     hgf_times = phase_hgf_times(torch, models, kernels_hgf, device["nvidia_smi"])["all five f32"]
     phase_generic_main_path(torch, LGSSM, ops, kernels)
     phase_generic_times(torch, LGSSM, ops, device["nvidia_smi"])
+    phase_gmm_main_path(torch, models, ops, kernels)
+    phase_gmm_times(torch, models, device["nvidia_smi"])
+    phase_mv_main_path(torch, models, ops, kernels)
+    phase_mv_times(torch, models, device["nvidia_smi"])
     hmm_source = "cortex_tpu_torch/csrc/hmm_forward_backward.cu"
     print(json.dumps({"kernels": [
         {

@@ -9,15 +9,20 @@ at the same path:
 - :mod:`cortex_tpu_torch.compile` — the static schedule compiler: dependency
   DAG → phased, type-batched tensor programs, run on the inputs' device,
 - :mod:`cortex_tpu_torch.ops` — scalar-chain message passing (scan, matmul
-  and associative-scan smoothers), discrete-chain forward-backward and
-  Viterbi, the HGF step, and the CUDA kernels written by hand for
-  ``sm_90a`` (the fused smoothing sweep, the scaled HMM forward-backward,
-  the HGF filter), each with a plain PyTorch twin,
+  and associative-scan smoothers), vector-state chains (scan, blocked,
+  associative-scan and matmul smoothers, filter, log evidence), the
+  square-root and robust (Student-t) smoothers, free energies,
+  discrete-chain forward-backward and Viterbi, the HGF step, and the CUDA
+  kernels written by hand for ``sm_90a`` (the fused smoothing sweep, the
+  scaled HMM forward-backward, the HGF filter), each with a plain PyTorch
+  twin,
 - :mod:`cortex_tpu_torch.dists` — exponential families (Gaussian,
-  MvGaussian, Beta, Gamma, Bernoulli, Categorical, Dirichlet),
-- :mod:`cortex_tpu_torch.models` — model families (LGSSM, HMM, HGF,
-  binary HGF), the scalar fits and the factor graphs of the compiled path
-  (the chain, mean-field and structured SSMs),
+  MvGaussian, Beta, Gamma, Bernoulli, Categorical, Dirichlet, NormalGamma,
+  Wishart, Poisson),
+- :mod:`cortex_tpu_torch.models` — model families (LGSSM, MvLGSSM, HMM,
+  HGF, binary HGF, the diagonal and full-covariance VB-GMMs), the scalar
+  and vector ML fits and the factor graphs of the compiled path (the chain,
+  mean-field and structured SSMs),
 - :mod:`cortex_tpu_torch.parallel` — streaming with copies overlapped with
   compute,
 - :mod:`cortex_tpu_torch.convert` — carry parameters, operators and states

@@ -18,10 +18,14 @@ import numpy as np
 import torch
 
 from . import dists
+from .models.gmm import GMMPosterior
+from .models.gmm_full import GMMFullPosterior
 from .models.hgf import HGF, HGFState
 from .models.hgf_binary import BinaryHGF, BinaryHGFState
 from .models.hmm import HMM, HMMVMPState
 from .models.lgssm import LGSSM
+from .models.mv_lgssm import MvLGSSM
+from .ops.chains_mv import MvSmootherOperator
 from .ops.kernels_hgf import PARAMS as HGF_PARAMS
 
 __all__ = [
@@ -29,11 +33,15 @@ __all__ = [
     "binary_hgf_state_from_numpy",
     "dist_from_numpy",
     "dists_from_numpy",
+    "gmm_full_posterior_from_numpy",
+    "gmm_posterior_from_numpy",
     "hgf_from_numpy",
     "hgf_state_from_numpy",
     "hmm_from_numpy",
     "hmm_state_from_numpy",
     "lgssm_from_numpy",
+    "mv_lgssm_from_numpy",
+    "mv_operator_from_numpy",
     "operator_from_numpy",
     "prior_from_numpy",
 ]
@@ -84,6 +92,51 @@ def prior_from_numpy(
     )
 
 
+def mv_lgssm_from_numpy(params: Mapping[str, object]) -> MvLGSSM:
+    """The port's :class:`MvLGSSM` from ``{"A", "Q", "H", "R", "m0", "P0"}``
+    (for example ``dataclasses.asdict`` of the JAX ``MvLGSSM``), held as
+    tuples as that model holds them.  Other or missing keys raise."""
+    fields = {f.name for f in dataclasses.fields(MvLGSSM)}
+    if set(params) != fields:
+        raise ValueError(f"MvLGSSM has fields {sorted(fields)}, got {sorted(params)}")
+    return MvLGSSM.from_arrays(**params)
+
+
+def mv_operator_from_numpy(operator: Sequence[object], device="cuda") -> MvSmootherOperator:
+    """An ``MvSmootherOperator`` ``(L, c, cov)`` of
+    ``mv_lgssm_smoother_operator`` as tensors on ``device``, in the arrays'
+    own dtype."""
+    L, c, cov = (torch.tensor(np.asarray(a), device=device) for a in operator)
+    T, d = c.shape if c.ndim == 2 else (0, 0)
+    if T == 0 or L.ndim != 2 or L.shape[1] != T * d or L.shape[0] % T or cov.shape != (T, d, d):
+        raise ValueError(
+            "operator must be (T*m, T*d), (T, d), (T, d, d); got "
+            f"{tuple(L.shape)}, {tuple(c.shape)}, {tuple(cov.shape)}"
+        )
+    return MvSmootherOperator(L, c, cov)
+
+
+def _tensors(values: Sequence[object], n: int, what: str, device):
+    values = list(values)
+    if len(values) != n:
+        raise ValueError(f"{what} has {n} fields, got {len(values)}")
+    return [torch.tensor(np.asarray(v), device=device) for v in values]
+
+
+def gmm_posterior_from_numpy(posterior: Sequence[object], device="cuda") -> GMMPosterior:
+    """A :class:`GMMPosterior` from its five arrays ``(alpha, m, beta, a,
+    b)`` (for example a JAX ``GMMPosterior``), on ``device`` in the arrays'
+    own dtype."""
+    return GMMPosterior(*_tensors(posterior, 5, "GMMPosterior", device))
+
+
+def gmm_full_posterior_from_numpy(posterior: Sequence[object], device="cuda") -> GMMFullPosterior:
+    """A :class:`GMMFullPosterior` from its five arrays ``(alpha, m, beta,
+    W, nu)`` (for example a JAX ``GMMFullPosterior``), on ``device`` in the
+    arrays' own dtype."""
+    return GMMFullPosterior(*_tensors(posterior, 5, "GMMFullPosterior", device))
+
+
 def hmm_from_numpy(params: Mapping[str, object], device="cuda") -> HMM:
     """The port's :class:`HMM` from ``{"K", "log_pi"}`` (for example
     ``dataclasses.asdict`` of the JAX ``HMM``), ``log_pi`` on ``device`` in
@@ -130,7 +183,7 @@ def binary_hgf_state_from_numpy(state: Sequence[object], device="cuda") -> Binar
 
 
 DISTRIBUTIONS = ("Gaussian", "MvGaussian", "Beta", "Gamma", "Bernoulli", "Categorical",
-                 "Dirichlet")
+                 "Dirichlet", "NormalGamma", "Wishart", "Poisson")
 
 
 def dist_from_numpy(name: str, fields: Mapping[str, object], device="cuda"):
@@ -139,7 +192,7 @@ def dist_from_numpy(name: str, fields: Mapping[str, object], device="cuda"):
     ``dataclasses.asdict`` of a JAX ``Gaussian``), as tensors on ``device``
     in the arrays' own dtype.  Another class or other fields raise."""
     if name not in DISTRIBUTIONS:
-        raise ValueError(f"not a distribution of the compiled path: {name!r}")
+        raise ValueError(f"not a distribution of the port: {name!r}")
     cls = getattr(dists, name)
     expected = {f.name for f in dataclasses.fields(cls)}
     if set(fields) != expected:

@@ -15,6 +15,7 @@ from .gaussian import (
     mv_from_mean_precision,
 )
 from .conjugate import Bernoulli, Beta, Categorical, Dirichlet, Gamma
+from .extra import NormalGamma, Poisson, Wishart
 
 __all__ = [
     "Gaussian",
@@ -28,4 +29,7 @@ __all__ = [
     "Bernoulli",
     "Categorical",
     "Dirichlet",
+    "NormalGamma",
+    "Wishart",
+    "Poisson",
 ]

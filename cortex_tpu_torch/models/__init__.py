@@ -1,12 +1,22 @@
 """Model families of the port, in PyTorch."""
 
 from . import fit
-from .fit import LGSSMParams, fit_hgf_ml, fit_lgssm_em, fit_lgssm_ml
+from .fit import (
+    LGSSMParams,
+    MvLGSSMParams,
+    fit_hgf_ml,
+    fit_lgssm_em,
+    fit_lgssm_ml,
+    fit_mv_lgssm_ml,
+)
+from .gmm import GMM, GMMPosterior, GMMResult
+from .gmm_full import GMMFull, GMMFullPosterior, GMMFullResult
 from .hgf import HGF, HGFState, HGFTrajectory
 from .hgf_binary import BinaryHGF, BinaryHGFState, BinaryHGFTrajectory
 from .hmm import HMM, HMMVMPResult, HMMVMPState
 from .lgssm import LGSSM
 from .lgssm_graph import LGSSMChainBatched, LGSSMChainDynamic, ScalarNormal, make_chain_graph
+from .mv_lgssm import MvLGSSM
 from .structured_graph import StructuredSSMBatched, make_structured_ssm_graph
 from .vmp_graph import MeanFieldSSMBatched, make_mean_field_ssm_graph
 
@@ -15,6 +25,13 @@ __all__ = [
     "HMM",
     "HMMVMPState",
     "HMMVMPResult",
+    "GMM",
+    "GMMPosterior",
+    "GMMResult",
+    "GMMFull",
+    "GMMFullPosterior",
+    "GMMFullResult",
+    "MvLGSSM",
     "HGF",
     "HGFState",
     "HGFTrajectory",
@@ -26,6 +43,8 @@ __all__ = [
     "fit_lgssm_ml",
     "fit_lgssm_em",
     "fit_hgf_ml",
+    "MvLGSSMParams",
+    "fit_mv_lgssm_ml",
     "LGSSMChainBatched",
     "LGSSMChainDynamic",
     "ScalarNormal",

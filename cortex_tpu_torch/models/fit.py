@@ -1,9 +1,10 @@
-"""Gradient-based and EM parameter learning for the scalar models, in PyTorch.
+"""Gradient-based and EM parameter learning, in PyTorch.
 
-The counterpart of ``cortex_tpu/models/fit.py``'s scalar fits: maximum
-likelihood of the LGSSM by Adam through the Kalman filter or by EM with a
-closed-form M-step, and of the continuous HGF's volatility parameters by Adam
-through its filtering recursion.  ``optax.adam`` becomes ``torch.optim.Adam``
+The counterpart of ``cortex_tpu/models/fit.py``: maximum likelihood of the
+LGSSM by Adam through the Kalman filter or by EM with a closed-form M-step,
+of the continuous HGF's volatility parameters by Adam through its filtering
+recursion, and of the vector LGSSM's ``A``, ``Q`` and ``R`` by Adam through
+its prediction-error log evidence.  ``optax.adam`` becomes ``torch.optim.Adam``
 with the same learning rate, betas (0.9, 0.999) and eps 1e-8, and the JAX
 ``lax.scan`` over optimizer steps a Python loop.  Gradients flow through the
 filters' loops over T; the HGF kernel has no backward, so the HGF fit runs
@@ -17,9 +18,17 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from ..ops.chains import scalar_kalman_update
+from ..ops.chains_mv import mv_lgssm_log_evidence
 from .hgf import HGF
 
-__all__ = ["LGSSMParams", "fit_lgssm_ml", "fit_lgssm_em", "fit_hgf_ml"]
+__all__ = [
+    "LGSSMParams",
+    "MvLGSSMParams",
+    "fit_lgssm_ml",
+    "fit_lgssm_em",
+    "fit_hgf_ml",
+    "fit_mv_lgssm_ml",
+]
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -185,3 +194,56 @@ def fit_hgf_ml(
     init = (_scalar(init_omega, u), _scalar(init_log_theta, u))
     (omega, log_theta), losses = _adam(nll, init, n_steps, learning_rate)
     return (omega, torch.exp(log_theta)), losses
+
+
+class MvLGSSMParams(NamedTuple):
+    """Unconstrained vector-model parameterization: ``A`` free; ``Q``/``R``
+    through Cholesky factors with a log diagonal and a free lower part, so
+    the noise covariances stay PD throughout optimization."""
+
+    A: torch.Tensor  # (d, d)
+    q_chol: torch.Tensor  # (d, d) lower, log-diagonal
+    r_chol: torch.Tensor  # (m, m) lower, log-diagonal
+
+    @staticmethod
+    def _expand(chol_param: torch.Tensor) -> torch.Tensor:
+        L = torch.tril(chol_param, diagonal=-1) + torch.diag(torch.exp(torch.diagonal(chol_param)))
+        return L @ L.T
+
+    @property
+    def Q(self) -> torch.Tensor:
+        return self._expand(self.q_chol)
+
+    @property
+    def R(self) -> torch.Tensor:
+        return self._expand(self.r_chol)
+
+
+def fit_mv_lgssm_ml(
+    y: torch.Tensor,
+    H,
+    d: int,
+    n_steps: int = 300,
+    learning_rate: float = 0.02,
+    init: "MvLGSSMParams | None" = None,
+) -> Tuple[MvLGSSMParams, torch.Tensor]:
+    """ML system identification for the vector LGSSM with known ``H``:
+    Adam on the prediction-error log evidence
+    (:func:`cortex_tpu_torch.ops.chains_mv.mv_lgssm_log_evidence`), pooled
+    over the replica series of ``y`` ``(..., T, m)``, on its device.  Returns
+    the fitted unconstrained params and the loss trace ``(n_steps,)``; read
+    ``params.A/Q/R`` for the constrained matrices."""
+    opts = dict(dtype=y.dtype, device=y.device)
+    H = torch.as_tensor(H, **opts)
+    if init is None:
+        m = H.shape[0]
+        init = MvLGSSMParams(0.5 * torch.eye(d, **opts), torch.zeros((d, d), **opts),
+                             torch.zeros((m, m), **opts))
+    prior = (torch.zeros((d,), **opts), 10.0 * torch.eye(d, **opts))
+
+    def nll(*p):
+        params = MvLGSSMParams(*p)
+        return -torch.mean(mv_lgssm_log_evidence(y, params.A, params.Q, H, params.R, prior))
+
+    params, losses = _adam(nll, init, n_steps, learning_rate)
+    return MvLGSSMParams(*params), losses

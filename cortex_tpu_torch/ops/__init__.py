@@ -1,4 +1,5 @@
-"""Message passing on chains in PyTorch, and the port's hand-written CUDA kernels."""
+"""Message passing on chains in PyTorch (scalar and vector states, square-root
+and robust smoothers, free energies), and the port's hand-written CUDA kernels."""
 
 from .chains import (
     ChainMarginals,
@@ -9,9 +10,18 @@ from .chains import (
     lgssm_smoother_operator,
     scalar_kalman_update,
 )
+from .chains_mv import (
+    MvChainMarginals,
+    mv_lgssm_filter,
+    mv_lgssm_log_evidence,
+    mv_lgssm_smooth,
+    mv_lgssm_smooth_blocked,
+)
 from .hmm import HMMPosterior, hmm_forward_backward, hmm_viterbi
 from .kernels import lgssm_smooth_fused, lgssm_smooth_fused_reference
 from .kernels_hgf import ALL_TRACKS, hgf_filter_fused, hgf_filter_fused_reference, hgf_update
+from .robust import RobustChainResult, robust_lgssm_smooth
+from .sqrt_kalman import SqrtFilterBeliefs, sqrt_lgssm_filter, sqrt_lgssm_smooth
 from .kernels_hmm import (
     hmm_forward_backward_counts_fused,
     hmm_forward_backward_counts_fused_reference,
@@ -27,6 +37,16 @@ __all__ = [
     "lgssm_smoother_operator",
     "lgssm_messages_scan",
     "scalar_kalman_update",
+    "MvChainMarginals",
+    "mv_lgssm_smooth",
+    "mv_lgssm_smooth_blocked",
+    "mv_lgssm_filter",
+    "mv_lgssm_log_evidence",
+    "SqrtFilterBeliefs",
+    "sqrt_lgssm_filter",
+    "sqrt_lgssm_smooth",
+    "RobustChainResult",
+    "robust_lgssm_smooth",
     "lgssm_smooth_fused",
     "lgssm_smooth_fused_reference",
     "HMMPosterior",

@@ -17,7 +17,8 @@ rtol = atol = 1e-4.  The HGF kernel rounds each operation as its plain
 version does: 1e-5 (tests/test_hgf.py's bar), bf16 tracks within one ulp.
 The generic compiled path runs plain torch operations on the card; the BP
 chain and the mean-field VMP graph are held against the same calls on the
-CPU at 1e-5 and rtol 1e-4 (atol 1e-6).
+CPU at 1e-5 and rtol 1e-4 (atol 1e-6).  So do the Gaussian mixtures and the
+vector chains, held against the CPU at 1e-4.
 """
 
 import importlib.util
@@ -364,3 +365,54 @@ def test_chip_smoke_generic_main_path_on_card(cuda):
     checks = _chip_smoke().run_generic_main_path(torch, LGSSM, "cuda", R=500, T=30, n_cpu=64)
     assert len(checks) == 10
     assert kernels.LAUNCHES == before  # the generic path runs none of K1-K4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["GMM", "GMMFull"])
+def test_gmm_fits_on_card_match_the_cpu(cuda, name):
+    """Both VB-GMMs on the card against the CPU at R=64, N=64 (rtol = atol =
+    1e-4, the CPU tests' bar against JAX), and the default initialization's
+    pick, made on the CPU, the same on either device."""
+    smoke = _chip_smoke()
+    x = torch.from_numpy(smoke.gmm_data(64, 64, 2, 4, seed=1))
+    cls = getattr(models, name)
+    for kwargs in ({"init_means": x[:, :4]}, {}):
+        got = cls(K=4).fit(x.to(cuda), n_iterations=6,
+                           **{k: v.to(cuda) for k, v in kwargs.items()})
+        want = cls(K=4).fit(x, n_iterations=6, **kwargs)
+        assert got.free_energy.is_cuda
+        for g, w in zip((*got.posterior, got.responsibilities, got.free_energy),
+                        (*want.posterior, want.responsibilities, want.free_energy)):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["scan", "blocked", "assoc", "matmul", "sqrt", "auto"])
+def test_mv_smoothers_on_card_match_the_cpu(cuda, method):
+    """Every ``MvLGSSM.smooth`` method on the card against the CPU at d=3,
+    R=32, T=20 (per-component NaN gaps where the method takes them), 1e-4."""
+    rng = np.random.default_rng(4)
+    A = 0.9 * np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    model = models.MvLGSSM.from_arrays(A, 0.5 * np.eye(3), rng.normal(size=(2, 3)),
+                                       0.7 * np.eye(2), np.zeros(3), np.eye(3))
+    y = rng.normal(size=(32, 20, 2)).cumsum(axis=1).astype(np.float32)
+    if method in ("scan", "blocked", "assoc", "auto"):
+        y[rng.random(y.shape) < 0.05] = np.nan
+    y = torch.from_numpy(y)
+    got = model.smooth(y.to(cuda), method=method)
+    want = model.smooth(y, method=method)
+    assert got.mean.is_cuda
+    torch.testing.assert_close(got.mean.cpu(), want.mean, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.cov.cpu(), want.cov, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_chip_smoke_gmm_and_mv_main_paths_on_card(cuda):
+    smoke = _chip_smoke()
+    before = dict(kernels.LAUNCHES)
+    gmm = smoke.run_gmm_main_path(torch, models, ops, "cuda", R=128, N=64, n_ref=16,
+                                  chain=(500, 40))
+    mv = smoke.run_mv_main_path(torch, models, ops, "cuda", shapes=((2, 64), (5, 16)), T=20,
+                                n_ref=8, robust=(500, 40), fit_R=64, fit_steps=2)
+    assert len(gmm) == 7 and len(mv) == 20
+    assert kernels.LAUNCHES == before  # these paths run none of K1-K4
