@@ -25,6 +25,7 @@ from .models.hgf_binary import BinaryHGF, BinaryHGFState
 from .models.hmm import HMM, HMMVMPState
 from .models.lgssm import LGSSM
 from .models.mv_lgssm import MvLGSSM
+from .models.slds import SLDS
 from .ops.chains_mv import MvSmootherOperator
 from .ops.kernels_hgf import PARAMS as HGF_PARAMS
 
@@ -44,6 +45,7 @@ __all__ = [
     "mv_operator_from_numpy",
     "operator_from_numpy",
     "prior_from_numpy",
+    "slds_from_numpy",
 ]
 
 _HGF_PARAMS = set(HGF_PARAMS)
@@ -100,6 +102,20 @@ def mv_lgssm_from_numpy(params: Mapping[str, object]) -> MvLGSSM:
     if set(params) != fields:
         raise ValueError(f"MvLGSSM has fields {sorted(fields)}, got {sorted(params)}")
     return MvLGSSM.from_arrays(**params)
+
+
+def slds_from_numpy(params: Mapping[str, object], device="cuda") -> SLDS:
+    """The port's :class:`SLDS` from ``{"Pi", "A", "Q", "H", "R", "prior",
+    "regime_prior"}`` (for example ``dataclasses.asdict`` of the JAX
+    ``SLDS``; ``prior`` and ``regime_prior`` may be left out): the arrays on
+    ``device`` in their own dtype, ``prior`` as floats.  Other keys raise."""
+    unknown = set(params) - {"Pi", "A", "Q", "H", "R", "prior", "regime_prior"}
+    if unknown:
+        raise ValueError(f"not SLDS parameters: {sorted(unknown)}")
+
+    fields = {k: v if k == "prior" or v is None else torch.tensor(np.asarray(v), device=device)
+              for k, v in params.items()}
+    return SLDS(**fields)
 
 
 def mv_operator_from_numpy(operator: Sequence[object], device="cuda") -> MvSmootherOperator:

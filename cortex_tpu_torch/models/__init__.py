@@ -17,6 +17,9 @@ from .hmm import HMM, HMMVMPResult, HMMVMPState
 from .lgssm import LGSSM
 from .lgssm_graph import LGSSMChainBatched, LGSSMChainDynamic, ScalarNormal, make_chain_graph
 from .mv_lgssm import MvLGSSM
+from .particle import ParticleFilterResult, particle_filter, systematic_resample
+from .rbpf import RBPFResult, rbpf_filter
+from .slds import SLDS, SLDSBeliefs
 from .structured_graph import StructuredSSMBatched, make_structured_ssm_graph
 from .vmp_graph import MeanFieldSSMBatched, make_mean_field_ssm_graph
 
@@ -32,6 +35,13 @@ __all__ = [
     "GMMFullPosterior",
     "GMMFullResult",
     "MvLGSSM",
+    "SLDS",
+    "SLDSBeliefs",
+    "RBPFResult",
+    "rbpf_filter",
+    "ParticleFilterResult",
+    "particle_filter",
+    "systematic_resample",
     "HGF",
     "HGFState",
     "HGFTrajectory",

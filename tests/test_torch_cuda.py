@@ -416,3 +416,23 @@ def test_chip_smoke_gmm_and_mv_main_paths_on_card(cuda):
                                 n_ref=8, robust=(500, 40), fit_R=64, fit_steps=2)
     assert len(gmm) == 7 and len(mv) == 20
     assert kernels.LAUNCHES == before  # these paths run none of K1-K4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend, world", [("nccl", 1), ("gloo", 2)])
+def test_parallel_worlds_on_card_match_the_single_device_path(cuda, tmp_path, backend, world):
+    """A 1-rank NCCL world and a 2-rank gloo world (both ranks on the one
+    card, exchanges staged through the host): chip_smoke's parallel main path
+    at a small size holds every sharded block — replica-sharded K1, the
+    time-sharded and pipelined smoothers, the vector chains, the sharded HGF
+    with K4 — to the single-device path on the card and to float64 numpy."""
+    shapes = {"replica": [300, 40], "time": [64, 128, 2], "mv": [2, 32, 20],
+              "hgf": [300, 64, 16]}
+    ranks = _chip_smoke().run_parallel_ranks(
+        "parallel_main_path_rank", world, tmp_path, device="cuda", backend=backend,
+        timeout=240.0, shapes=shapes, n_ref=16, timed=False)
+    for r in ranks:
+        assert r["backend"] == backend and r["device"] == "cuda:0"
+        assert r["launches"]["lgssm_smooth"] == 1 and r["launches"]["hgf_filter"] == 2
+        assert {"replica-sharded lgssm_smooth_fused", "time-sharded, no prior",
+                "time-sharded, prior"} <= {c["path"] for c in r["checks"]}
