@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main paths once on an NVIDIA GPU: LGSSM, HMM, HGF,
 the generic compiled path, the Gaussian mixtures, the vector chains, the
-parallel layer and the switching and particle state-space models.
+parallel layer, the switching and particle state-space models, and the rest
+of the model zoo.
 
 Run from the root of a checkout, with one CUDA card::
 
@@ -9,7 +10,8 @@ Run from the root of a checkout, with one CUDA card::
 It imports nothing of JAX: its references are a float64 numpy RTS smoother,
 a float64 numpy log-space forward-backward, a float64 numpy HGF, float64
 numpy VB-GMMs, a float64 numpy vector Kalman filter and RTS smoother, a
-float64 numpy IMM filter, and the port's own plain versions, CPU runs and
+float64 numpy IMM filter, float64 numpy EKF/UKF, GaBP (a dense solve), NIG,
+EP, GP, SGPR, PPCA and BOCPD, and the port's own plain versions, CPU runs and
 single-device runs.  Phases, each printing JSON lines:
 
 1. ``device``: the card's name and ``nvidia-smi``'s name and power limit.
@@ -87,14 +89,30 @@ single-device runs.  Phases, each printing JSON lines:
     ``global_sum`` and ``all_converged``, time-sharded scalar smoothing with
     and without a prior, vector time-sharded and pipelined smoothing, and
     the replica-sharded HGF (K4 filter-only and with five tracks, and
-    ``StreamingSession`` over 8 chunks); holds every block to the
-    single-device port path and to float64 numpy; counts K1's and K4's
-    launches; and times each path (call, device, collectives).
+    ``StreamingSession`` over 8 chunks), replica-sharded GaBP grids and
+    chain-sharded HMC (``sharded_zoo``); holds every block to the
+    single-device port path and to float64 numpy (the chains, joined by
+    ``gather``, to their target's moments); counts K1's and K4's launches;
+    and times each path (call, device, collectives).
 19. ``ssm_main_path`` and ``ssm_times``: ``SLDS`` at 10,000 x 100 against a
     float64 numpy IMM, ``rbpf_filter`` at 1,024 x 512 x 100 (K=1 against the
     exact Kalman evidence, K=2 against the IMM), ``particle_filter`` at 1,024
     x 1,024 x 100 against the Kalman filter within its Monte-Carlo bars;
     K1-K4's counts (all 0); each call's time, device time and kernels.
+20. ``zoo_main_path``: the rest of the zoo at ZOO_SHAPES: ``NonlinearSSM``
+    (the pendulum, 10,000 x 100, EKF and UKF) against float64 numpy EKF/UKF
+    and the CPU, linear f, h against the float64 RTS; ``gabp_grid_solve`` and
+    ``gabp_solve`` (256 grids of 64 x 64) against a dense solve and each
+    other; ``hmc_sample`` (1,024 chains, d=64) against its target's moments;
+    the GLMs, EP and CVI at 100,000 x 32 against float64 NIG, EP and the
+    exact posterior, or the CPU; ``BayesianAR`` (10,000 x 1,000) against
+    float64 NIG and ``latent_ar_smooth`` against the RTS; ``GP``, ``SGPR``
+    (65,536 x 256), ``GPClassifier`` and ``GPSSM`` against float64 numpy, the
+    exact GP or the CPU; PPCA and FA (65,536 x 128); BOCPD (4,096 x 1,000,
+    r_max 256) against float64 numpy and the CPU; K1-K4's counts (all 0).
+21. ``zoo_times``: each zoo path's call time (CUDA events), device time,
+    kernels and host share from one profiled call, and its top kernels;
+    GPSSM also at T=10,000 (call time only).
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 A failed check raises: the exit code is non-zero and the last line is not
@@ -1841,6 +1859,8 @@ PAR_SHAPES = {
     "time": (10_000, 1024, 4),  # R, T, microbatches of the pipelined path
     "mv": (4, 4096, 100),  # d, R, T
     "hgf": (65_536, 256, 32),  # R, T, chunk
+    "gabp": (256, 64, 64, 80),  # grids, H, W, iterations (ZOO_SHAPES')
+    "hmc": (1024, 64, 200, 200, 8),  # chains, d, warmup, samples, leapfrog steps
 }
 PAR_PARAMS = {"A": 0.9, "Q": 0.3, "H": 1.0, "R": 1.5}
 PAR_PRIOR = (0.5, 2.0)
@@ -1849,7 +1869,8 @@ PAR_PRIOR = (0.5, 2.0)
 # sharded 1e-5, time-sharded 1e-3, pipelined 1e-4, vector time-sharded 2e-3;
 # tests/test_hgf.py: 1e-5).  Against float64 numpy: K1's main-path bar 2e-4,
 # 1e-3 for the chains of 1,024 steps, 2e-3 for the vector chains, HGF_F64_TOL.
-PAR_TOL = {"replica": 1e-5, "time": 1e-3, "pipelined": 1e-4, "mv": 2e-3, "hgf": 1e-5}
+PAR_TOL = {"replica": 1e-5, "time": 1e-3, "pipelined": 1e-4, "mv": 2e-3, "hgf": 1e-5,
+           "gabp": 1e-5}
 PAR_F64_TOL = {"replica": 2e-4, "time": 1e-3, "pipelined": 1e-3, "mv": 2e-3,
                "hgf": HGF_F64_TOL}
 # The worlds on one card: one rank over NCCL (the degenerate mesh), and four
@@ -1861,764 +1882,7 @@ PAR_WORLD_TIMEOUT = 300.0  # seconds a world may take, start-up included
 # thousands of launches a call take two.  Then one call under torch.profiler.
 PAR_RUNS = {"replica-sharded lgssm_smooth_fused": 10, "all_converged": 10, "pipelined": 2,
             "vector time-sharded": 2, "replica-sharded HGF streaming": 2,
-            "all_gather of one element alone": 10}
-RANK_TIMEOUT_S = 60  # each rank's collective timeout
-
-
-def run_parallel_ranks(body: str, world_size: int, workdir, *, device: str = "cpu",
-                       backend: str = "gloo", timeout: float = PAR_WORLD_TIMEOUT,
-                       **kwargs) -> list:
-    """Run the rank body ``body`` (a function of this file) in a world of
-    ``world_size`` fresh processes and return each rank's JSON result, in
-    rank order.
-
-    Each rank imports this file (torch and numpy only), joins the world by a
-    rendezvous file in ``workdir`` (a directory of its own) with a collective
-    timeout of RANK_TIMEOUT_S and one CPU thread, over ``backend`` on
-    ``device`` (on a card: the first card, for every rank), calls
-    ``body(torch, device, workdir, **kwargs)`` and writes what it returns to
-    ``workdir/rank<r>.json``.  A rank that exits non-zero stops the others at
-    once; a world that outlives ``timeout`` seconds is stopped.  Either
-    raises SmokeFailure with the end of the rank's log."""
-    workdir = Path(workdir).resolve()
-    workdir.mkdir(parents=True, exist_ok=True)
-    spec = json.dumps({"body": body, "world_size": world_size, "device": device,
-                       "backend": backend, "init": (workdir / "rendezvous").as_uri(),
-                       "workdir": str(workdir), "kwargs": kwargs})
-    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
-            "chip_smoke._rank_main(sys.argv[1], int(sys.argv[2]))")
-    logs = [open(workdir / f"rank{r}.log", "w") for r in range(world_size)]
-    procs = []
-    timed_out = False
-    try:
-        for r in range(world_size):
-            procs.append(subprocess.Popen([sys.executable, "-c", code, spec, str(r)],
-                                          stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO))
-        deadline = time.monotonic() + timeout
-        while any(p.poll() is None for p in procs):
-            if any(p.returncode not in (None, 0) for p in procs):
-                break
-            if time.monotonic() > deadline:
-                timed_out = True
-                break
-            time.sleep(0.05)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        for p in procs:
-            p.wait()
-        for log in logs:
-            log.close()
-    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if timed_out or failed:
-        first = next((r for r in failed if procs[r].returncode > 0), failed[0])
-        tail = (workdir / f"rank{first}.log").read_text()[-4000:]
-        what = (f"outlived {timeout} s" if timed_out
-                else f"rank {first} exited with {procs[first].returncode}")
-        raise SmokeFailure(f"{body} in a world of {world_size} ({backend}, {device}): {what}:\n"
-                           f"{tail}")
-    return [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(world_size)]
-
-
-def _rank_main(spec_json: str, rank: int) -> None:
-    """One rank of :func:`run_parallel_ranks`: join the world, run the body,
-    leave the world, and write the body's result with the seconds it took to
-    join."""
-    import torch
-    import torch.distributed as dist
-
-    from cortex_tpu_torch import parallel
-
-    spec = json.loads(spec_json)
-    torch.set_num_threads(1)
-    start = time.perf_counter()
-    parallel.init_distributed(spec["init"], spec["world_size"], rank, local_rank=0,
-                              backend=spec["backend"], device=spec["device"],
-                              timeout=timedelta(seconds=RANK_TIMEOUT_S))
-    seconds_to_join = time.perf_counter() - start
-    workdir = Path(spec["workdir"])
-    try:
-        result = globals()[spec["body"]](torch, spec["device"], workdir, **spec["kwargs"])
-    finally:
-        dist.destroy_process_group()
-    result["seconds_to_join"] = seconds_to_join
-    (workdir / f"rank{rank}.json").write_text(json.dumps(result))
-
-
-def _profile_once(torch, fn) -> dict:
-    """The device kernels (and copies) of one call of ``fn``, their device time
-    and the five that take the most of it (name cut to 100 characters, ms,
-    launches), from ``torch.profiler``'s raw device records (its
-    ``key_averages`` builds a Python object a record, which costs far more
-    on paths of tens of thousands of kernels); kernels 0 when it recorded
-    none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = copies = 0
-    by_name = {}
-    for event in prof.profiler.kineto_results.events():
-        if event.device_type() != torch.autograd.DeviceType.CUDA or event.duration_ns() <= 0:
-            continue
-        name = event.name()
-        ms, count = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + event.duration_ns() / 1e6, count + 1)
-        if name.startswith(("Memcpy", "Memset")):
-            copies += 1
-        else:
-            kernels += 1
-    top = sorted(([name[:100], ms, count] for name, (ms, count) in by_name.items()),
-                 key=lambda item: -item[1])[:5]
-    return {"kernels": kernels, "copies": copies,
-            "device_ms": sum(ms for ms, _ in by_name.values()), "top": top}
-
-
-def _count_kernels(torch, fn) -> dict:
-    """:func:`_profile_once` of ``fn`` after one call to warm it up, profiled
-    once more when the first profile holds no kernel record."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):  # a profile now and then holds no kernel record: one more
-        counted = _profile_once(torch, fn)
-        if counted["kernels"]:
-            break
-    return counted
-
-
-def phase_generic_main_path(torch, LGSSM, ops, kernels) -> dict:
-    start = time.perf_counter()
-    for key in kernels.LAUNCHES:
-        kernels.LAUNCHES[key] = 0
-    checks = run_generic_main_path(torch, LGSSM, "cuda", GENERIC_R, GENERIC_T)
-    launches = dict(kernels.LAUNCHES)
-    for check in checks:
-        emit(phase="generic_main_path", R=GENERIC_R, T=GENERIC_T, **check)
-    emit(phase="generic_main_path", launches=launches,
-         note="the generic path runs eager torch operations and none of K1-K4")
-    # Held against K1 too, outside the counted run.
-    y_np, vmp_np = generic_data(GENERIC_R, GENERIC_T)
-    y, data = torch.from_numpy(y_np).cuda(), torch.from_numpy(vmp_np).cuda()
-    paths = GenericPaths(torch, "cuda", GENERIC_T, GENERIC_T)
-    mean, var = paths.bp(y)
-    k1 = ops.lgssm_smooth_fused(y)
-    emit(phase="generic_main_path", path="BP chain", against="lgssm_smooth_fused (K1)",
-         tol=GENERIC_TOL["rts"],
-         max_abs_err_mean=check_close("BP chain mean vs K1", mean, k1.mean, GENERIC_TOL["rts"]),
-         max_abs_err_variance=check_close("BP chain variance vs K1", var, k1.variance,
-                                          GENERIC_TOL["rts"]))
-    counts = {
-        "BP chain sweep": _count_kernels(torch, lambda: paths.bp(y)),
-        f"mean-field VMP, {GENERIC_ITERS} iterations": _count_kernels(
-            torch, lambda: paths.mean_field(data, GENERIC_ITERS)),
-        f"structured VMP, {GENERIC_ITERS} iterations": _count_kernels(
-            torch, lambda: paths.structured(data, GENERIC_ITERS)),
-    }
-    for path, count in counts.items():
-        emit(phase="generic_main_path", path=path, per_call=count, counter="torch.profiler")
-    seconds = time.perf_counter() - start
-    emit(phase="generic_main_path", seconds=seconds)
-    return {"launches": launches, "counts": counts, "seconds": seconds}
-
-
-def phase_generic_times(torch, LGSSM, ops, card: str) -> dict:
-    """CUDA-event medians of the generic paths at the main path's width,
-    beside the scan and K1 (BP) and the hand-written sweep (mean-field VMP),
-    with device time against call time; returns {path: ms}."""
-    start = time.perf_counter()
-    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
-    y_np, vmp_np = generic_data(GENERIC_R, GENERIC_T, seed=5)
-    y, data = torch.from_numpy(y_np).cuda(), torch.from_numpy(vmp_np).cuda()
-    paths = GenericPaths(torch, "cuda", GENERIC_T, GENERIC_T)
-    model = LGSSM()
-    it, it_long = GENERIC_ITERS, GENERIC_ITERS_LONG
-    timed = {
-        "BP generic": (lambda: paths.bp(y), 10),
-        "BP scan": (lambda: model.smooth(y, method="scan"), 10),
-        "BP kernel": (lambda: ops.lgssm_smooth_fused(y), 25),
-        f"mean-field VMP compiled x{it}": (lambda: paths.mean_field(data, it), 5),
-        f"mean-field VMP hand-written x{it}": (lambda: handwritten_mean_field(torch, data, it), 5),
-        f"structured VMP x{it}": (lambda: paths.structured(data, it), 5),
-        f"structured VMP x{it_long}": (lambda: paths.structured(data, it_long), 3),
-    }
-    ms = {}
-    # Each pair in turns A/B/A/B, as bench.py:392-397 times the VMP paths.
-    for pair in (("BP generic", "BP scan", "BP kernel"),
-                 (f"mean-field VMP compiled x{it}", f"mean-field VMP hand-written x{it}"),
-                 (f"structured VMP x{it}", f"structured VMP x{it_long}")):
-        samples = {name: [] for name in pair}
-        for name in pair + pair:
-            fn, runs = timed[name]
-            samples[name].append(median_ms(torch, fn, flush, runs=runs, warmup=1))
-        for name, rounds in samples.items():
-            ms[name] = statistics.mean(rounds)
-            device = _count_kernels(torch, timed[name][0])
-            emit(phase="generic_times", R=GENERIC_R, T=GENERIC_T, path=name, ms=ms[name],
-                 ms_rounds=rounds, device_ms=device["device_ms"],
-                 host_share=1.0 - device["device_ms"] / ms[name], kernels_per_call=device["kernels"],
-                 card=card)
-            ms[f"{name} device"] = device["device_ms"]
-    steady = (ms[f"structured VMP x{it_long}"] - ms[f"structured VMP x{it}"]) / (it_long - it)
-    warm = ms[f"structured VMP x{it}"] - (it - 1) * steady
-    derived = {
-        "bp_ratio_vs_scan": ms["BP generic"] / ms["BP scan"],
-        "bp_ratio_vs_kernel": ms["BP generic"] / ms["BP kernel"],
-        "bp_message_updates_per_s": GENERIC_R * (3 * GENERIC_T - 2) / (ms["BP generic"] / 1e3),
-        "vmp_us_per_iteration_compiled": ms[f"mean-field VMP compiled x{it}"] / it * 1e3,
-        "vmp_us_per_iteration_handwritten": ms[f"mean-field VMP hand-written x{it}"] / it * 1e3,
-        "vmp_ratio_vs_handwritten": (ms[f"mean-field VMP compiled x{it}"]
-                                     / ms[f"mean-field VMP hand-written x{it}"]),
-        "structured_warm_start_us": warm * 1e3,
-        "structured_steady_iteration_us": steady * 1e3,
-        "structured_joint_updates_per_s": GENERIC_R * (GENERIC_T - 1) / (steady / 1e3),
-    }
-    emit(phase="generic_times", R=GENERIC_R, T=GENERIC_T, **derived, card=card,
-         seconds=time.perf_counter() - start)
-    return {**ms, **derived}
-
-
-# -- The Gaussian-mixture slice (phases 14, 15) -------------------------------------
-
-
-_LOG_2PI = math.log(2.0 * math.pi)
-
-
-def gmm_data(R: int, N: int, D: int, K: int, seed: int = 0):
-    """``normal + 3·randint(0, K)`` per point, as the JAX bench's ladder.gmm
-    makes its data: float32 (R, N, D), the offset shared by a point's D
-    coordinates."""
-    rng = np.random.default_rng(seed)
-    x = rng.normal(size=(R, N, D)) + 3.0 * rng.integers(0, K, size=(R, N, 1))
-    return x.astype(np.float32)
-
-
-def _numpy_responsibilities(log_rho):
-    top = log_rho.max(-1, keepdims=True)
-    log_r = log_rho - top - np.log(np.exp(log_rho - top).sum(-1, keepdims=True))
-    return np.exp(log_r), log_r
-
-
-def numpy_vb_gmm(x, K, init_means, n_iterations, alpha0=1.0, m0=0.0, beta0=1.0, a0=1.0,
-                 b0=1.0):
-    """Float64 variational Bayesian GMM with diagonal Normal–Gamma components
-    (Bishop §10.2): the E-step and M-step of every iteration, then the
-    closed-form free energy.  ``x`` (n, N, D).  Returns ``((alpha, m, beta,
-    a, b), r, free_energy)``, the trace (n, n_iterations)."""
-    from scipy.special import digamma, gammaln
-
-    x = np.asarray(x, np.float64)
-    n, N, D = x.shape
-    alpha = np.full((n, K), alpha0)
-    m = np.array(init_means, np.float64)
-    beta, a, b = (np.full((n, K, D), v) for v in (beta0, a0, b0))
-    r, fes = np.zeros((n, N, K)), []
-    for _ in range(n_iterations):
-        e_log_pi = digamma(alpha) - digamma(alpha.sum(-1, keepdims=True))
-        e_log_tau, e_tau = digamma(a) - np.log(b), a / b
-        quad = (e_tau[:, None] * (x[:, :, None] - m[:, None]) ** 2 + 1.0 / beta[:, None]).sum(-1)
-        r, log_r = _numpy_responsibilities(
-            e_log_pi[:, None] + 0.5 * e_log_tau.sum(-1)[:, None] - 0.5 * D * _LOG_2PI
-            - 0.5 * quad)
-        Nk = r.sum(1) + 1e-10
-        xbar = np.einsum("nik,nid->nkd", r, x) / Nk[..., None]
-        S = np.einsum("nik,nikd->nkd", r, (x[:, :, None] - xbar[:, None]) ** 2) / Nk[..., None]
-        alpha = alpha0 + Nk
-        beta = np.broadcast_to(beta0 + Nk[..., None], xbar.shape)
-        m = (beta0 * m0 + Nk[..., None] * xbar) / beta
-        a = np.broadcast_to(a0 + 0.5 * Nk[..., None], xbar.shape)
-        b = b0 + 0.5 * (Nk[..., None] * S + beta0 * Nk[..., None] * (xbar - m0) ** 2 / beta)
-        # The free energy -ELBO of (r, the updated posterior).
-        e_log_pi = digamma(alpha) - digamma(alpha.sum(-1, keepdims=True))
-        e_log_tau, e_tau = digamma(a) - np.log(b), a / b
-        quad = (e_tau[:, None] * (x[:, :, None] - m[:, None]) ** 2 + 1.0 / beta[:, None]).sum(-1)
-        a_sum = alpha.sum(-1)
-        elbo = (
-            0.5 * (r * (e_log_tau.sum(-1)[:, None] - D * _LOG_2PI - quad)).sum((1, 2))
-            + (r * e_log_pi[:, None]).sum((1, 2))
-            + gammaln(K * alpha0) - K * gammaln(alpha0) + (alpha0 - 1.0) * e_log_pi.sum(-1)
-            + (0.5 * (np.log(beta0) - _LOG_2PI + e_log_tau)
-               - 0.5 * beta0 * (e_tau * (m - m0) ** 2 + 1.0 / beta)
-               + a0 * np.log(b0) - gammaln(a0) + (a0 - 1.0) * e_log_tau - b0 * e_tau).sum((1, 2))
-            - (r * log_r).sum((1, 2))
-            + gammaln(alpha).sum(-1) - gammaln(a_sum)
-            - ((alpha - 1.0) * (digamma(alpha) - digamma(a_sum)[:, None])).sum(-1)
-            + (0.5 * (1.0 + _LOG_2PI - e_log_tau - np.log(beta))
-               + a - np.log(b) + gammaln(a) + (1.0 - a) * digamma(a)).sum((1, 2))
-        )
-        fes.append(-elbo)
-    return (alpha, m, beta, a, b), r, np.stack(fes, -1) if fes else np.zeros((n, 0))
-
-
-def numpy_vb_gmm_full(x, K, init_means, n_iterations, alpha0=1.0, beta0=1.0, m0=0.0,
-                      w0_scale=1.0):
-    """Float64 variational Bayesian GMM with Normal–Wishart components
-    (Bishop eqs. 10.46-10.63 and the free energy of 10.70-10.77), ν0 = D.
-    Returns ``((alpha, m, beta, W, nu), r, free_energy)``."""
-    from scipy.special import digamma, gammaln
-
-    x = np.asarray(x, np.float64)
-    n, N, D = x.shape
-    nu0, W0_inv = float(D), np.eye(D) / w0_scale
-    i = np.arange(1, D + 1)
-
-    def e_logdet(nu, W):
-        return (digamma((nu[..., None] + 1.0 - i) / 2.0).sum(-1) + D * math.log(2.0)
-                + np.linalg.slogdet(W)[1])
-
-    def log_B(W, nu):
-        multigammaln = D * (D - 1) / 4.0 * math.log(math.pi) + gammaln(
-            nu[..., None] / 2.0 + (1.0 - i) / 2.0).sum(-1)
-        return -0.5 * nu * np.linalg.slogdet(W)[1] - 0.5 * nu * D * math.log(2.0) - multigammaln
-
-    alpha, beta, nu = np.full((n, K), alpha0), np.full((n, K), beta0), np.full((n, K), nu0)
-    m = np.array(init_means, np.float64)
-    W = np.broadcast_to(w0_scale * np.eye(D), (n, K, D, D))
-    r, fes = np.zeros((n, N, K)), []
-    for _ in range(n_iterations):
-        e_log_pi = digamma(alpha) - digamma(alpha.sum(-1, keepdims=True))
-        diff = x[:, :, None] - m[:, None]
-        quad = nu[:, None] * np.einsum("nikd,nkde,nike->nik", diff, W, diff) + D / beta[:, None]
-        r, log_r = _numpy_responsibilities(
-            e_log_pi[:, None] + 0.5 * e_logdet(nu, W)[:, None] - 0.5 * D * _LOG_2PI - 0.5 * quad)
-        Nk = r.sum(1) + 1e-10
-        xbar = np.einsum("nik,nid->nkd", r, x) / Nk[..., None]
-        dxb = x[:, :, None] - xbar[:, None]
-        S = np.einsum("nik,nikd,nike->nkde", r, dxb, dxb) / Nk[..., None, None]
-        alpha, beta, nu = alpha0 + Nk, beta0 + Nk, nu0 + Nk
-        m = (beta0 * m0 + Nk[..., None] * xbar) / beta[..., None]
-        dm = xbar - m0
-        shrink = (beta0 * Nk / beta)[..., None, None]
-        W = np.linalg.inv(W0_inv + Nk[..., None, None] * S
-                          + shrink * dm[..., :, None] * dm[..., None, :])
-        # The free energy -ELBO of (r, the updated posterior).
-        e_log_pi = digamma(alpha) - digamma(alpha.sum(-1, keepdims=True))
-        eld = e_logdet(nu, W)
-        dxm, dm0 = xbar - m, m - m0
-        trace = lambda P, M: np.einsum("...kde,...ked->...k", P, M)  # noqa: E731
-        quad_form = lambda v, M: np.einsum("...kd,...kde,...ke->...k", v, M, v)  # noqa: E731
-        t1 = 0.5 * (Nk * (eld - D / beta - nu * trace(S, W) - nu * quad_form(dxm, W)
-                          - D * _LOG_2PI)).sum(-1)
-        t2 = (r * e_log_pi[:, None]).sum((1, 2))
-        t3 = gammaln(K * alpha0) - K * gammaln(alpha0) + (alpha0 - 1.0) * e_log_pi.sum(-1)
-        t4 = (0.5 * (D * math.log(beta0 / (2.0 * math.pi)) + eld - D * beta0 / beta
-                     - beta0 * nu * quad_form(dm0, W)).sum(-1)
-              + K * log_B(w0_scale * np.eye(D), np.array(nu0))
-              + 0.5 * (nu0 - D - 1.0) * eld.sum(-1)
-              - 0.5 * (nu * np.einsum("de,nked->nk", W0_inv, W)).sum(-1))
-        t5 = (r * log_r).sum((1, 2))
-        t6 = ((alpha - 1.0) * e_log_pi).sum(-1) + gammaln(alpha.sum(-1)) - gammaln(alpha).sum(-1)
-        h_w = -log_B(W, nu) - 0.5 * (nu - D - 1.0) * eld + 0.5 * nu * D
-        t7 = (0.5 * eld + 0.5 * D * np.log(beta / (2.0 * math.pi)) - 0.5 * D - h_w).sum(-1)
-        fes.append(-(t1 + t2 + t3 + t4 - t5 - t6 - t7))
-    return (alpha, m, beta, W, nu), r, np.stack(fes, -1) if fes else np.zeros((n, 0))
-
-
-def numpy_bethe_chain(y, Q=1.0, A=1.0, R=1.0):
-    """Float64 −log p(y_2..T | y_1) of the scalar chain over the rows of ``y``
-    (n, T), by the prediction-error decomposition from the filtered belief
-    of ``y_1`` alone."""
-    y = np.asarray(y, np.float64)
-    m, v, ll = y[:, 0].copy(), np.full(y.shape[0], R), np.zeros(y.shape[0])
-    for t in range(1, y.shape[1]):
-        pm, pv = A * m, A * A * v + Q
-        s = pv + R
-        ll -= 0.5 * (np.log(2.0 * math.pi * s) + (y[:, t] - pm) ** 2 / s)
-        m, v = pm + pv / s * (y[:, t] - pm), pv - pv / s * pv
-    return -ll
-
-
-def _kernel_launches_zero(kernels):
-    for key in kernels.LAUNCHES:
-        kernels.LAUNCHES[key] = 0
-
-
-def _check_no_kernel_launched(kernels, phase: str) -> dict:
-    launches = dict(kernels.LAUNCHES)
-    emit(phase=phase, launches=launches, note="this path runs eager torch operations and "
-         "none of K1-K4")
-    if any(launches.values()):
-        raise SmokeFailure(f"{phase} launched a kernel of K1-K4: {launches}")
-    return launches
-
-
-def run_gmm_main_path(torch, models, ops, device, R: int, N: int, D: int = GMM_D,
-                      K: int = GMM_K, n_iterations: int = GMM_ITERS, n_ref: int = N_GMM,
-                      chain=(R_MAIN, T_MAIN), seed: int = 0) -> list:
-    """Drive the port's Gaussian-mixture slice once on ``device`` through its
-    public entry points, and check every result.
-
-    ``GMM.fit`` and ``GMMFull.fit`` on R replicas of N points (initial means
-    the first K points of each replica) are held against the float64 numpy
-    VB-GMMs and against the port's CPU run on the first ``n_ref`` replicas
-    (GMM_TOL), their free energies against GMM_MONOTONE_RTOL on every
-    replica; ``bethe_free_energy_chain`` on the LGSSM main path's data
-    (``chain``: R, T) against the float64 prediction-error sum (rtol 1e-4,
-    the bar of tests/test_free_energy.py).  Returns the checks."""
-    from cortex_tpu_torch.ops.free_energy import bethe_free_energy_chain
-
-    x_np = gmm_data(R, N, D, K, seed)
-    x = torch.from_numpy(x_np).to(device)
-    families = {"GMM": (models.GMM, numpy_vb_gmm), "GMMFull": (models.GMMFull, numpy_vb_gmm_full)}
-    fits = {name: cls(K=K).fit(x, n_iterations=n_iterations, init_means=x[:, :K])
-            for name, (cls, _) in families.items()}
-    y_np = random_walk(*chain, seed=seed + 1)
-    xi, w = ops.lgssm_messages_scan(torch.from_numpy(y_np).to(device))["obs"]
-    bethe = bethe_free_energy_chain(xi, w, Q=1.0)
-    if device != "cpu":
-        torch.cuda.synchronize()
-
-    checks = []
-    x_cpu = torch.from_numpy(x_np[:n_ref])
-    for name, (cls, reference) in families.items():
-        res = fits[name]
-        fe = _host64(res.free_energy)
-        if res.responsibilities.shape != (R, N, K) or fe.shape != (R, n_iterations):
-            raise SmokeFailure(f"{name}: shapes {tuple(res.responsibilities.shape)}, {fe.shape}")
-        rise = np.diff(fe, axis=-1) - GMM_MONOTONE_RTOL * np.abs(fe[:, 1:])
-        if not np.isfinite(fe).all() or (rise > 0).any():
-            raise SmokeFailure(f"{name}: the free energy rose by {float(rise.max())} "
-                               f"beyond {GMM_MONOTONE_RTOL} of its magnitude")
-        post_ref, r_ref, fe_ref = reference(x_np[:n_ref], K, x_np[:n_ref, :K], n_iterations)
-        cpu = cls(K=K).fit(x_cpu, n_iterations=n_iterations, init_means=x_cpu[:, :K])
-        for against, want, tol in (
-            ("float64 numpy", (*post_ref, r_ref, fe_ref), GMM_TOL["float64"]),
-            ("port on cpu", (*cpu.posterior, cpu.responsibilities, cpu.free_energy),
-             GMM_TOL["cpu"]),
-        ):
-            fields = res.posterior._fields + ("responsibilities", "free_energy")
-            got = (*res.posterior, res.responsibilities, res.free_energy)
-            errs = {f: check_close(f"{name} {f} vs {against}", g[:n_ref], w_, *tol)
-                    for f, g, w_ in zip(fields, got, want)}
-            checks.append({"path": f"{name}.fit", "against": against, "atol": tol[0],
-                           "rtol": tol[1], "replicas": n_ref, "max_abs_err": errs})
-        checks.append({"path": f"{name}.fit", "against": "non-increasing free energy",
-                       "rtol": GMM_MONOTONE_RTOL, "replicas": R,
-                       "largest_step": float(np.diff(fe, axis=-1).max()),
-                       "fe_first_last_mean": [float(fe[:, 0].mean()), float(fe[:, -1].mean())]})
-    checks.append({"path": "bethe_free_energy_chain", "against": "float64 prediction-error sum",
-                   "rtol": 1e-4, "replicas": chain[0], "T": chain[1],
-                   "max_abs_err": check_close("bethe_free_energy_chain", bethe,
-                                              numpy_bethe_chain(y_np), 0.0, 1e-4)})
-    return checks
-
-
-def phase_gmm_main_path(torch, models, ops, kernels) -> dict:
-    start = time.perf_counter()
-    _kernel_launches_zero(kernels)
-    checks = run_gmm_main_path(torch, models, ops, "cuda", GMM_R, GMM_N)
-    launches = _check_no_kernel_launched(kernels, "gmm_main_path")
-    for check in checks:
-        emit(phase="gmm_main_path", R=GMM_R, N=GMM_N, D=GMM_D, K=GMM_K,
-             iterations=GMM_ITERS, **check)
-    seconds = time.perf_counter() - start
-    emit(phase="gmm_main_path", seconds=seconds)
-    return {"launches": launches, "seconds": seconds}
-
-
-def phase_gmm_times(torch, models, card: str) -> dict:
-    """Per VMP iteration of ``GMM`` and ``GMMFull`` at ladder.gmm's width:
-    call time (CUDA events: five iterations less one, over four), device time
-    and kernels (``torch.profiler``, the same difference), the host's share,
-    responsibility updates per second (R·N·K/t, bench.py:710), beside the
-    matched-traffic probe (read x, write an (R, N, K) array; bench.py:
-    676-685) and the bound (x read once an iteration; also with the
-    responsibilities written once).  Returns {path: value}."""
-    start = time.perf_counter()
-    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
-    R, N, D, K = GMM_R, GMM_N, GMM_D, GMM_K
-    x = torch.from_numpy(gmm_data(R, N, D, K, seed=3)).cuda()
-    init = x[:, :K].contiguous()
-    out = {}
-    for name, cls in (("GMM", models.GMM), ("GMMFull", models.GMMFull)):
-        model = cls(K=K)
-
-        def fit(n):
-            return lambda: model.fit(x, n_iterations=n, init_means=init)
-
-        call = {n: median_ms(torch, fit(n), flush, runs=5, warmup=1) for n in (1, 5)}
-        device = {n: _count_kernels(torch, fit(n)) for n in (1, 5)}
-        per_iter = (call[5] - call[1]) / 4
-        dev_iter = (device[5]["device_ms"] - device[1]["device_ms"]) / 4
-        kernels_iter = (device[5]["kernels"] - device[1]["kernels"]) / 4
-        out[name] = {"ms_per_iteration": per_iter, "device_ms_per_iteration": dev_iter}
-        emit(phase="gmm_times", R=R, N=N, D=D, K=K, model=name, ms_per_iteration=per_iter,
-             device_ms_per_iteration=dev_iter, host_share=1.0 - dev_iter / per_iter,
-             kernels_per_iteration=kernels_iter, fit_ms=call,
-             fit_device_ms={n: c["device_ms"] for n, c in device.items()},
-             resp_updates_per_s=R * N * K / (per_iter / 1e3),
-             top_kernels_5_iterations=device[5]["top"], card=card)
-
-    def probe():
-        return x * 1.000001, x.amax(-1, keepdim=True).expand(R, N, K).contiguous()
-
-    probe_ms = median_ms(torch, probe, flush)
-    probe_device = device_ms(torch, probe, flush)
-    bound = _bound(4 * R * N * D, 0)
-    bound_written = _bound(4 * R * N * (D + K), 0)
-    out["probe"] = {"ms": probe_ms, "device_ms": probe_device}
-    emit(phase="gmm_times", R=R, N=N, D=D, K=K, path="probe", ms=probe_ms,
-         device_ms=probe_device, bound_ms_x_read=bound["bound_ms"],
-         bound_ms_x_read_r_written=bound_written["bound_ms"], bound_by="bytes",
-         device_over_probe={name: out[name]["device_ms_per_iteration"] / probe_device
-                            for name in ("GMM", "GMMFull")} if probe_device else None,
-         card=card, seconds=time.perf_counter() - start)
-    return out
-
-
-# -- The vector chains (phases 16, 17) -------------------------------------------------
-
-
-def mv_model_arrays(d: int):
-    """ladder.mv's model: A = 0.9 I, Q = H = R = P0 = I, m0 = 0."""
-    eye = np.eye(d, dtype=np.float32)
-    return 0.9 * eye, eye, eye, eye, np.zeros(d, np.float32), eye
-
-
-def mv_data(R: int, T: int, d: int, seed: int):
-    """The cumsum over time of standard normals, float32 (R, T, d)."""
-    return np.random.default_rng(seed).normal(size=(R, T, d)).cumsum(axis=1).astype(np.float32)
-
-
-def numpy_kalman_mv(y, A, Q, H, R, m0, P0):
-    """Float64 Kalman filter and RTS smoother of every series of ``y`` (n, T,
-    m), dense, under one model: the covariances do not depend on the data.
-    Returns ``(filtered means (n, T, d), filtered covs (T, d, d), log
-    evidence (n,), smoothed means, smoothed covs)``."""
-    y = np.asarray(y, np.float64)
-    A, Q, H, R, m0, P0 = (np.asarray(a, np.float64) for a in (A, Q, H, R, m0, P0))
-    n, T, _ = y.shape
-    d = A.shape[0]
-    fm, fP, ll = np.empty((n, T, d)), np.empty((T, d, d)), np.zeros(n)
-    mean, P_ = np.broadcast_to(m0, (n, d)), P0
-    for t in range(T):
-        if t:
-            mean, P_ = mean @ A.T, A @ P_ @ A.T + Q
-        S = H @ P_ @ H.T + R
-        S_inv = np.linalg.inv(S)
-        innov = y[:, t] - mean @ H.T
-        ll -= 0.5 * (np.einsum("ni,ij,nj->n", innov, S_inv, innov)
-                     + np.linalg.slogdet(2.0 * math.pi * S)[1])
-        K = P_ @ H.T @ S_inv
-        mean, P_ = mean + innov @ K.T, P_ - K @ S @ K.T
-        fm[:, t], fP[t] = mean, P_
-    sm, sP = fm.copy(), fP.copy()
-    for t in range(T - 2, -1, -1):
-        Pp = A @ fP[t] @ A.T + Q
-        G = fP[t] @ A.T @ np.linalg.inv(Pp)
-        sm[:, t] = fm[:, t] + (sm[:, t + 1] - fm[:, t] @ A.T) @ G.T
-        sP[t] = fP[t] + G @ (sP[t + 1] - Pp) @ G.T
-    return fm, fP, ll, sm, sP
-
-
-def _robust_data(R: int, T: int, seed: int):
-    """A random walk with 1% of the steps shifted by ±15 (outliers) and 2%
-    missing, float32 (R, T)."""
-    rng = np.random.default_rng(seed)
-    y = random_walk(R, T, seed)
-    y += np.where(rng.random((R, T)) < 0.01, 15.0 * rng.choice([-1.0, 1.0], (R, T)), 0.0
-                  ).astype(np.float32)
-    y[rng.random((R, T)) < 0.02] = np.nan
-    return y
-
-
-def run_mv_main_path(torch, models, ops, device, shapes=MV_SHAPES, T: int = MV_T,
-                     n_ref: int = N_MV, robust=(R_MAIN, T_MAIN), fit_R: int = MV_FIT_R,
-                     fit_steps: int = MV_FIT_STEPS, seed: int = 0) -> list:
-    """Drive the port's vector chains once on ``device`` through their public
-    entry points, and check every result.
-
-    For each (d, R) of ``shapes`` at T steps: every ``MvLGSSM.smooth``
-    method, the matmul path through ``mv_lgssm_smoother_operator``, and
-    ``filter`` and ``log_evidence`` against the float64 Kalman filter and
-    RTS smoother on ``n_ref`` replicas (MV_TOL, MV_FILTER_TOL); per-component
-    NaN gaps through scan and blocked against the port's CPU run; then
-    ``robust_lgssm_smooth`` (``robust``: R, T) and ``fit_mv_lgssm_ml``
-    (``fit_steps`` Adam steps on ``fit_R`` replicas at the first d) against
-    the port's CPU run (MV_CPU_TOL).  Returns the checks."""
-    from cortex_tpu_torch.ops.chains_mv import mv_lgssm_smooth_matmul, mv_lgssm_smoother_operator
-
-    checks = []
-    for d, R in shapes:
-        arrays = mv_model_arrays(d)
-        model = models.MvLGSSM.from_arrays(*arrays)
-        y_np = mv_data(R, T, d, seed + d)
-        y = torch.from_numpy(y_np).to(device)
-        outs = {m: model.smooth(y, method=m) for m in ("scan", "blocked", "assoc", "sqrt", "auto")}
-        op = mv_lgssm_smoother_operator(T, *arrays[:4], arrays[4:], device=device)
-        outs["matmul"] = mv_lgssm_smooth_matmul(y, operator=op)
-        filt, evidence = model.filter(y), model.log_evidence(y)
-        rng = np.random.default_rng(seed + 100 + d)
-        y_gaps_np = np.where(rng.random(y_np.shape) < 0.05, np.nan, y_np).astype(np.float32)
-        y_gaps = torch.from_numpy(y_gaps_np).to(device)
-        gapped = {m: model.smooth(y_gaps, method=m) for m in ("scan", "blocked")}
-        if device != "cpu":
-            torch.cuda.synchronize()
-
-        fm, fP, ll, sm, sP = numpy_kalman_mv(y_np[:n_ref], *arrays)
-        sP_all = np.broadcast_to(sP, (n_ref,) + sP.shape)
-        for name, out in outs.items():
-            method = model.auto_method() if name == "auto" else name
-            tol = MV_TOL[method]
-            if tuple(out.mean.shape) != (R, T, d) or not bool(torch.isfinite(out.mean).all()):
-                raise SmokeFailure(f"d={d} {name}: mean not finite of shape ({R}, {T}, {d})")
-            checks.append({
-                "d": d, "R": R, "path": f"smooth {name}" + (f" ({method})" if name == "auto"
-                                                             else ""),
-                "against": "float64 RTS", "tol": tol, "replicas": n_ref,
-                "max_abs_err_mean": check_close(f"d={d} {name} mean", out.mean[:n_ref], sm, tol),
-                "max_abs_err_cov": check_close(f"d={d} {name} cov", out.cov[:n_ref], sP_all, tol),
-            })
-        ctol = MV_FILTER_TOL["cov"]
-        checks.append({
-            "d": d, "R": R, "path": "filter, log_evidence", "against": "float64 Kalman filter",
-            "tol": MV_FILTER_TOL, "replicas": n_ref,
-            "max_abs_err_mean": check_close(f"d={d} filter mean", filt.mean[:n_ref], fm,
-                                            MV_FILTER_TOL["mean"]),
-            "max_abs_err_cov": check_close(f"d={d} filter cov", filt.cov[:n_ref],
-                                           np.broadcast_to(fP, (n_ref,) + fP.shape), *ctol),
-            "max_abs_err_log_evidence": check_close(f"d={d} log_evidence", evidence[:n_ref], ll,
-                                                    0.0, MV_FILTER_TOL["log_evidence"]),
-        })
-        cpu_model = models.MvLGSSM.from_arrays(*arrays)
-        y_gaps_cpu = torch.from_numpy(y_gaps_np[:n_ref])
-        for name, out in gapped.items():
-            want = cpu_model.smooth(y_gaps_cpu, method=name)
-            checks.append({
-                "d": d, "R": R, "path": f"smooth {name}, per-component NaN gaps",
-                "against": "port on cpu", "tol": MV_CPU_TOL, "replicas": n_ref,
-                "max_abs_err_mean": check_close(f"d={d} gaps {name} mean", out.mean[:n_ref],
-                                                want.mean, MV_CPU_TOL),
-                "max_abs_err_cov": check_close(f"d={d} gaps {name} cov", out.cov[:n_ref],
-                                               want.cov, MV_CPU_TOL),
-            })
-
-    y_np = _robust_data(*robust, seed + 7)
-    kw = dict(A=0.95, Q=0.3, R=0.4, nu=4.0, prior=(0.0, 5.0))
-    got = ops.robust_lgssm_smooth(torch.from_numpy(y_np).to(device), **kw)
-    want = ops.robust_lgssm_smooth(torch.from_numpy(y_np[:n_ref]), **kw)
-    checks.append({
-        "path": "robust_lgssm_smooth", "R": robust[0], "T": robust[1], "against": "port on cpu",
-        "tol": MV_CPU_TOL, "replicas": n_ref,
-        "max_abs_err": {f: check_close(f"robust {f}", g[:n_ref], w_, MV_CPU_TOL)
-                        for f, g, w_ in zip(got._fields, got, want)},
-    })
-
-    d = shapes[0][0]
-    H = np.eye(d, dtype=np.float32)
-    y_np = mv_data(fit_R, T, d, seed + 11)
-    _, losses = models.fit_mv_lgssm_ml(torch.from_numpy(y_np).to(device), H=H, d=d,
-                                       n_steps=fit_steps)
-    _, losses_cpu = models.fit_mv_lgssm_ml(torch.from_numpy(y_np), H=H, d=d, n_steps=fit_steps)
-    if not bool(losses[-1] < losses[0]):
-        raise SmokeFailure(f"fit_mv_lgssm_ml: the loss did not fall: {losses.tolist()}")
-    checks.append({"path": "fit_mv_lgssm_ml", "d": d, "R": fit_R, "T": T, "steps": fit_steps,
-                   "against": "port on cpu", "rtol": MV_CPU_TOL, "losses": losses.tolist(),
-                   "max_abs_err": check_close("fit_mv_lgssm_ml losses", losses, losses_cpu, 0.0,
-                                              MV_CPU_TOL)})
-    return checks
-
-
-def phase_mv_main_path(torch, models, ops, kernels) -> dict:
-    start = time.perf_counter()
-    _kernel_launches_zero(kernels)
-    checks = run_mv_main_path(torch, models, ops, "cuda")
-    launches = _check_no_kernel_launched(kernels, "mv_main_path")
-    for check in checks:
-        emit(phase="mv_main_path", **{"T": MV_T, **check})
-    seconds = time.perf_counter() - start
-    emit(phase="mv_main_path", seconds=seconds)
-    return {"launches": launches, "seconds": seconds}
-
-
-def phase_mv_times(torch, models, card: str) -> dict:
-    """Each smoothing method's call time (CUDA events), device time and
-    kernels a sweep (``torch.profiler``) and the host's share at both of
-    ladder.mv's shapes; ``auto_method``'s pick beside the fastest recursion
-    (bench.py:791-803's ``default_vs_best_recursion``, printed, not
-    asserted); ``_solve_small_logdet`` beside one batched
-    ``torch.linalg.solve`` on the scan's innovation systems.  Returns {d:
-    {path: ms}}."""
-    from cortex_tpu_torch.ops import chains_mv
-
-    start = time.perf_counter()
-    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
-    result = {}
-    for d, R in MV_SHAPES:
-        arrays = mv_model_arrays(d)
-        model = models.MvLGSSM.from_arrays(*arrays)
-        y = torch.from_numpy(mv_data(R, MV_T, d, seed=20 + d)).cuda()
-        op = chains_mv.mv_lgssm_smoother_operator(MV_T, *arrays[:4], arrays[4:], device="cuda")
-        paths = {m: (lambda m=m: model.smooth(y, method=m)) for m in
-                 ("scan", "blocked", "assoc", "sqrt")}
-        paths["matmul"] = lambda: chains_mv.mv_lgssm_smooth_matmul(y, operator=op)
-        # The scan's first innovation systems: S = P0 + R (m x m), with the
-        # innovation and P0 Hᵀ as right-hand sides.
-        S = torch.eye(d, device="cuda").expand(R, d, d) * 2.0
-        rhs = torch.cat([y[:, 0, :, None], torch.eye(d, device="cuda").expand(R, d, d)], -1)
-        paths["_solve_small_logdet"] = lambda: chains_mv._solve_small_logdet(S, rhs)
-        paths["torch.linalg.solve"] = lambda: torch.linalg.solve(S, rhs)
-        ms = {}
-        for name, fn in paths.items():
-            once = median_ms(torch, fn, flush, runs=1, warmup=1)
-            runs = 1 if once > 300 else 3 if once > 30 else 10
-            ms[name] = median_ms(torch, fn, flush, runs=runs, warmup=0)
-            count = _count_kernels(torch, fn)
-            ms[f"{name} device"] = count["device_ms"]
-            emit(phase="mv_times", d=d, R=R, T=MV_T, path=name, ms=ms[name], runs=runs,
-                 device_ms=count["device_ms"], host_share=1.0 - count["device_ms"] / ms[name],
-                 kernels_per_call=count["kernels"], copies_per_call=count["copies"],
-                 top_kernels=count["top"], card=card)
-        best = min(("scan", "blocked", "assoc"), key=lambda m: ms[m])
-        pick = model.auto_method()
-        emit(phase="mv_times", d=d, R=R, T=MV_T, auto_method=pick, fastest_recursion=best,
-             default_vs_best_recursion=ms[pick] / ms[best], fastest_overall=min(
-                 ("scan", "blocked", "assoc", "sqrt", "matmul"), key=lambda m: ms[m]),
-             solve_small_vs_library=ms["_solve_small_logdet"] / ms["torch.linalg.solve"],
-             card=card)
-        result[d] = ms
-    emit(phase="mv_times", seconds=time.perf_counter() - start)
-    return result
-
-
-# -- The parallel layer (phase 18) ------------------------------------------------------
-
-# The parallel layer at the north star's shapes (BASELINE.json: independent
-# replicas and time slices of state-space models sharded across ranks,
-# reductions by collectives): replica-sharded LGSSM at 10,000 x 100 with K1
-# on each rank's block; time-sharded smoothing of 10,000 chains of 1,024
-# steps with and without a prior; the vector chains at ladder.mv's d=4 x
-# 4,096 x 100; pipelined smoothing at 10,000 x 1,024 in 4 microbatches; the
-# HGF at ladder.hgf's 65,536 x 256 with K4 on each block, and streamed in 8
-# chunks of 32.  The scalar model is tests/test_parallel.py's time-sharded one.
-PAR_SHAPES = {
-    "replica": (10_000, 100),  # R, T
-    "time": (10_000, 1024, 4),  # R, T, microbatches of the pipelined path
-    "mv": (4, 4096, 100),  # d, R, T
-    "hgf": (65_536, 256, 32),  # R, T, chunk
-}
-PAR_PARAMS = {"A": 0.9, "Q": 0.3, "H": 1.0, "R": 1.5}
-PAR_PRIOR = (0.5, 2.0)
-# atol = rtol of each sharded path against the single-device port path on
-# the same card: the JAX tests' own bars (tests/test_parallel.py: replica-
-# sharded 1e-5, time-sharded 1e-3, pipelined 1e-4, vector time-sharded 2e-3;
-# tests/test_hgf.py: 1e-5).  Against float64 numpy: K1's main-path bar 2e-4,
-# 1e-3 for the chains of 1,024 steps, 2e-3 for the vector chains, HGF_F64_TOL.
-PAR_TOL = {"replica": 1e-5, "time": 1e-3, "pipelined": 1e-4, "mv": 2e-3, "hgf": 1e-5}
-PAR_F64_TOL = {"replica": 2e-4, "time": 1e-3, "pipelined": 1e-3, "mv": 2e-3,
-               "hgf": HGF_F64_TOL}
-# The worlds on one card: one rank over NCCL (the degenerate mesh), and four
-# ranks that all compute on the card, joined by gloo (NCCL refuses two ranks
-# on one device; gloo's exchanges go through host memory).
-PAR_WORLDS = (("nccl", 1), ("gloo", 4))
-PAR_WORLD_TIMEOUT = 300.0  # seconds a world may take, start-up included
-# Timed calls of each path (3 where not named): the host-bound paths of
-# thousands of launches a call take two.  Then one call under torch.profiler.
-PAR_RUNS = {"replica-sharded lgssm_smooth_fused": 10, "all_converged": 10, "pipelined": 2,
-            "vector time-sharded": 2, "replica-sharded HGF streaming": 2,
-            "all_gather of one element alone": 10}
+            "all_gather of one element alone": 10, "chain-sharded HMC": 1}
 RANK_TIMEOUT_S = 60  # each rank's collective timeout
 
 
@@ -2743,6 +2007,84 @@ def _rank_times(torch, fn, mesh, flush, runs: int) -> dict:
             "top_kernels": prof["top"]}
 
 
+def sharded_zoo(torch, rmesh, shapes, seed: int = 40) -> dict:
+    """Phase 18's GaBP and HMC on this rank of the replica mesh: GaBP on the
+    rank's block of ``shapes["gabp"]``'s grids and HMC on its share of
+    ``shapes["hmc"]``'s chains (a generator seeded with ``seed`` plus the
+    rank).  Returns {"single": the single-device GaBP on the whole grids,
+    "paths": {path: fn}, "check": outs -> checks, "blocks": outs -> {name:
+    block}}; the check joins every rank's chains (``gather``) and holds
+    their pooled moments to the target's (check_hmc)."""
+    from cortex_tpu_torch import ops, parallel
+
+    dev, rank, world = rmesh.device, rmesh.coords["replica"], rmesh.shape["replica"]
+    R, H, W, n_iters = shapes["gabp"]
+    C, d, n_warm, n_samp, n_leap = shapes["hmc"]
+    rng = np.random.default_rng(seed)
+    lam = torch.from_numpy((4.0 + 0.5 * rng.random((H, W))).astype(np.float32)).to(dev)
+    eta = rng.normal(size=(R, H, W)).astype(np.float32)
+    rows = slice(rank * R // world, (rank + 1) * R // world)
+    block = parallel.shard_replicas(eta, rmesh)
+    mu, cov = hmc_target(d)
+    mu_t = torch.tensor(mu, dtype=torch.float32, device=dev)
+    prec = torch.tensor(np.linalg.inv(cov), dtype=torch.float32, device=dev)
+    if C % world:
+        raise ValueError(f"{C} chains must divide evenly over {world} ranks")
+
+    def log_density(x):
+        r = x - mu_t
+        return -0.5 * r @ (prec @ r)
+
+    def hmc():
+        gen = torch.Generator(device=dev).manual_seed(seed + rank)
+        return ops.hmc_sample(gen, log_density, torch.zeros((C // world, d), device=dev),
+                              n_samples=n_samp, n_warmup=n_warm, n_leapfrog=n_leap,
+                              n_chains=C // world)
+
+    single = ops.gabp_grid_solve(lam, torch.from_numpy(eta).to(dev), -0.8, n_iters=n_iters)
+    paths = {"replica-sharded gabp_grid_solve": lambda: ops.gabp_grid_solve(
+        lam, block, -0.8, n_iters=n_iters), "chain-sharded HMC": hmc}
+
+    def check(outs):
+        grid = outs["replica-sharded gabp_grid_solve"]
+        by_replica = parallel.replica_sharding(rmesh)
+        errs = {f: check_close(f"rank {rank}: replica-sharded gabp_grid_solve {f}", g, w,
+                               PAR_TOL["gabp"])
+                for f, g, w in (("mean", grid.mean, single.mean[rows]),
+                                ("variance", grid.variance, single.variance))}
+        res = outs["chain-sharded HMC"]
+        joined = [parallel.gather(x.contiguous(), by_replica)
+                  for x in (res.samples, res.accept_rate, res.step_size)]
+        return [{"path": "replica-sharded gabp_grid_solve", "against": "single-device GaBP",
+                 "tol": PAR_TOL["gabp"], "grids": R, "max_abs_err": errs},
+                {**check_hmc(*joined, d, f"rank {rank}: chain-sharded HMC"),
+                 "path": "chain-sharded HMC", "chains_per_rank": C // world}]
+
+    def blocks(outs):
+        res = outs["chain-sharded HMC"]
+        return {"gabp lam": lam, "gabp eta": block,
+                "gabp mean": outs["replica-sharded gabp_grid_solve"].mean,
+                "hmc samples": res.samples, "hmc accept": res.accept_rate}
+
+    return {"single": single, "paths": paths, "check": check, "blocks": blocks}
+
+
+def zoo_sharded_rank(torch, device: str, workdir, shapes) -> dict:
+    """The body of one rank of the world of tests/test_torch_gabp_hmc.py:
+    :func:`sharded_zoo` at ``shapes`` on a replica mesh over the world.
+    Saves this rank's blocks to ``workdir/rank<r>.pt`` for the test to hold
+    against the JAX package, and returns its checks."""
+    from cortex_tpu_torch import parallel
+
+    rmesh = parallel.make_mesh([("replica", -1)], device=device)
+    zoo = sharded_zoo(torch, rmesh, shapes)
+    outs = {name: fn() for name, fn in zoo["paths"].items()}
+    checks = zoo["check"](outs)
+    rank = torch.distributed.get_rank()
+    torch.save({k: v.cpu() for k, v in zoo["blocks"](outs).items()}, workdir / f"rank{rank}.pt")
+    return {"rank": rank, "checks": checks}
+
+
 def parallel_main_path_rank(torch, device: str, workdir, shapes=None, n_ref: int = N_RTS,
                             timed: bool = True) -> dict:
     """The body of one rank of the parallel main path (run_parallel_ranks).
@@ -2800,6 +2142,7 @@ def parallel_main_path_rank(torch, device: str, workdir, shapes=None, n_ref: int
         ref["time", prior] = ops.lgssm_smooth_scan(whole(y2), **p, prior=prior)
     for name, tracks in track_sets.items():
         ref["hgf", name] = hgf.filter(whole(u5), method="fused", tracks=tracks)
+    zoo = sharded_zoo(torch, rmesh, shapes)
 
     b1 = parallel.shard_replicas(y1, rmesh)
     b2, b3 = (parallel.shard(a, by_time) for a in (y2, y3))
@@ -2843,6 +2186,7 @@ def parallel_main_path_rank(torch, device: str, workdir, shapes=None, n_ref: int
         return session.flush()
 
     paths["replica-sharded HGF streaming"] = (rmesh, streamed)
+    paths.update({name: (rmesh, fn) for name, fn in zoo["paths"].items()})
 
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -2926,6 +2270,7 @@ def parallel_main_path_rank(torch, device: str, workdir, shapes=None, n_ref: int
     check("replica-sharded HGF streaming", "single-device K4", PAR_TOL["hgf"],
           [(f, g, w[rows5]) for f, g, w in zip(ALL5, outs["replica-sharded HGF streaming"],
                                                 single)], chunks=len(chunks))
+    checks += zoo["check"](outs)
 
     stage("checks")
 
@@ -3353,6 +2698,931 @@ def phase_ssm_main_path(torch, models, kernels, card: str) -> dict:
     return {"launches": launches, "times": result}
 
 
+# Phases 20-21: the rest of the model zoo at full width.  NLSSM: the pendulum
+# of docs/models.md (d=2, m=1), R x T; GaBP: R grids of H x W (the size
+# ops/gabp.py names), n iterations; HMC: chains on a d-dimensional correlated
+# Gaussian with the docs' settings; EP, CVI, the GLMs: n points x d; AR: R
+# series x T, p lags, and the latent AR at R x T (ladder.mv's d=4); GPs: n
+# points (SGPR with m inducing points), GPSSM at T and timed at a longer T;
+# PPCA/FA: n x d, q components, EM iterations; BOCPD: R x T, r_max.
+ZOO_SHAPES = {
+    "nlssm": (10_000, 100),
+    "gabp": (256, 64, 64, 80),
+    "hmc": (1024, 64, 200, 200, 8),  # chains, d, warmup, samples, leapfrog steps
+    "glm": (100_000, 32),
+    "ar": (10_000, 1000, 4),
+    "latent_ar": (4096, 100),
+    "gp": 4096,
+    "sgpr": (65_536, 256),
+    "gpc": 4096,
+    "gpssm": (4096, 10_000),
+    "ppca": (65_536, 128, 8, 100),
+    "bocpd": (4096, 1000, 256),
+}
+# What the references see: float64 numpy on the first rows (replicas, series,
+# grids), and the port's own CPU run at a size the host takes.  The float64
+# GP behind the GPSSM conditions on all T points and predicts at every 4th
+# (its n x n triangular solve costs seconds a kernel at T=4,096).
+ZOO_REF = {"nlssm": 64, "nlssm_cpu": 256, "gabp": 16, "ar": 256, "latent_ar": 64,
+           "cpu_n": 4096, "gpc_cpu": 1024, "bocpd": 16, "bocpd_cpu": 64, "gpssm_stride": 4}
+# Bars (atol, rtol), each from the JAX test of the path:
+# - NLSSM on the card against its CPU run, and linear f, h against the float64
+#   RTS: tests/test_nlssm.py's 1e-5, 1e-4; the nonlinear pendulum against a
+#   float64 EKF/UKF: its EKF-UKF agreement bar, 1e-4, 1e-3 (float32 over 100
+#   steps of a nonlinear map); log evidence rtol 1e-4, and atol 1e-5 a
+#   step (a sum of T terms of either sign can be near 0).
+# - GaBP against the dense solve and grid against edge list: tests/
+#   test_gabp.py's loopy bar, 2e-5, 2e-4.
+# - HMC: the pooled mean and covariance within 5 Monte-Carlo standard errors
+#   (the spread of the 1,024 chains' own moments over sqrt(1,024)), plus 0.02
+#   for the bias of finite chains; acceptance in (0.4, 1] (docs/models.md).
+# - NIG (BayesianLinearRegression, BayesianAR): tests/test_glm.py's and
+#   tests/test_ar.py's: mean 1e-3, cov_scale (1e-6, 1e-2), a rtol 1e-6, b rtol
+#   1e-2; the log evidence rtol 1e-4 (tests/test_ar.py's decomposition).
+# - EP against float64 numpy EP: tests/test_ep.py's Gaussian-site bars, mean
+#   (1e-5, 1e-4), cov (1e-5, 1e-3).  CVI's one rho=1 step against the exact
+#   posterior: tests/test_cvi.py's, mean 1e-3, cov (1e-4, 1e-2).
+# - The card against the port's CPU run on the same inputs (iterative float32
+#   paths: logistic CVI, Poisson EP, GPC, FA, BOCPD): 1e-4, 1e-3.
+# - The latent AR against the float64 RTS: the associative smoother's bar at
+#   d=4 (MV_TOL["assoc"]).
+# - GP, SGPR predictions and GPSSM against float64 and the exact GP: tests/
+#   test_gp.py's and tests/test_gp_ssm.py's: mean (1e-4, 1e-3), variance
+#   (1e-4, 1e-2) (GP) and (1e-4, 2e-3) (GPSSM); the LML rtol 1e-4.  The SGPR
+#   bound is a difference of terms of the size of yᵀy/σ² (~4e5 here):
+#   within 1e-5 of that size.
+# - PPCA's closed form: tests/test_ppca.py's sigma2 rtol 1e-4, log likelihood
+#   rtol 1e-5; W Wᵀ (1e-4, 1e-3); EM's subspace against the closed form's:
+#   projectors within 5e-3; EM traces non-decreasing up to float32 rounding of
+#   the sum (1e-6 of its size, tests/test_ppca.py's -0.5 at its n·d).
+# - BOCPD against float64 numpy: tests/test_bocpd.py's 2e-3 on the log
+#   run-length probabilities of non-negligible mass (above -25) and on the
+#   changepoint probabilities; the log evidence rtol 1e-5.
+ZOO_TOL = {"nlssm_cpu": (1e-5, 1e-4), "nlssm_linear": (1e-5, 1e-4), "nlssm_f64": (1e-4, 1e-3),
+           "evidence": 1e-4, "gabp": (2e-5, 2e-4), "hmc_se": 5.0, "hmc_bias": 0.02,
+           "hmc_accept": 0.4, "nig_mean": (1e-3, 1e-3), "nig_cov": (1e-6, 1e-2),
+           "nig_a": 1e-6, "nig_b": 1e-2, "ep_mean": (1e-5, 1e-4), "ep_cov": (1e-5, 1e-3),
+           "cvi_mean": (1e-3, 1e-3), "cvi_cov": (1e-4, 1e-2), "cpu": (1e-4, 1e-3),
+           "gp_mean": (1e-4, 1e-3), "gp_var": (1e-4, 1e-2), "gpssm_var": (1e-4, 2e-3),
+           "ppca_sigma2": 1e-4, "ppca_ll": 1e-5, "ppca_wwt": (1e-4, 1e-3), "projector": 5e-3,
+           "monotone": 1e-6, "bocpd": (2e-3, 2e-3), "bocpd_evidence": 1e-5, "bound": 1e-5,
+           "evidence_step": 1e-5}
+ZOO_DT = 0.05  # the pendulum's time step (docs/models.md)
+ZOO_PENDULUM = {"Q": 0.01 * np.eye(2), "R": np.array([[0.05]]), "m0": np.array([0.5, 0.0]),
+                "P0": 0.1 * np.eye(2)}
+ZOO_LINEAR = {"A": np.array([[1.0, 0.1], [0.0, 0.9]]), "H": np.array([[1.0, 0.5]]),
+              "Q": 0.2 * np.eye(2), "R": np.array([[0.5]]), "m0": np.array([0.4, 0.0]),
+              "P0": np.diag([1.3, 0.7])}
+ZOO_AR = np.array([0.5, -0.2, 0.1, 0.05])  # stable AR(4) coefficients
+ZOO_GP = {"lengthscale": 1.0, "variance": 1.0, "noise": 0.1}
+# Phase 21 times a call three times (CUDA events, median), once where the
+# checked run took longer than ZOO_SLOW_MS, and keeps the checked run's time
+# past ZOO_KEEP_MS (HMC, GPSSM: seconds of host work a call, where a first
+# call's start-up is a small share), then profiles one call.
+ZOO_SLOW_MS = 250.0
+ZOO_KEEP_MS = 2000.0
+
+
+def _pendulum_numpy():
+    """The pendulum's f, its Jacobian, h and its Jacobian on (..., 2) states,
+    float64."""
+    g, dt = 9.81, ZOO_DT
+
+    def f(x):
+        return np.stack([x[..., 0] + dt * x[..., 1], x[..., 1] - dt * g * np.sin(x[..., 0])], -1)
+
+    def F(x):
+        one, zero = np.ones_like(x[..., 0]), np.zeros_like(x[..., 0])
+        return np.stack([np.stack([one, dt * one], -1),
+                         np.stack([-dt * g * np.cos(x[..., 0]), one], -1)], -2)
+
+    def h(x):
+        return np.sin(x[..., :1])
+
+    def Hj(x):
+        return np.stack([np.cos(x[..., 0]), np.zeros_like(x[..., 0])], -1)[..., None, :]
+
+    return f, F, h, Hj
+
+
+def _pendulum_torch(torch):
+    g, dt = 9.81, ZOO_DT
+
+    def f(x):
+        return torch.stack([x[0] + dt * x[1], x[1] - dt * g * torch.sin(x[0])])
+
+    def h(x):
+        return torch.sin(x[:1])
+
+    return f, h
+
+
+def pendulum_series(R: int, T: int, seed: int):
+    """``(R, T, 1)`` float32 observations of the pendulum simulated in float64."""
+    rng = np.random.default_rng(seed)
+    f, _, h, _ = _pendulum_numpy()
+    p = ZOO_PENDULUM
+    x = p["m0"] + rng.normal(size=(R, 2)) @ np.linalg.cholesky(p["P0"]).T
+    ys = np.empty((R, T, 1))
+    for t in range(T):
+        if t:
+            x = f(x) + rng.normal(size=(R, 2)) @ np.linalg.cholesky(p["Q"]).T
+        ys[:, t] = h(x) + rng.normal(size=(R, 1)) * math.sqrt(p["R"][0, 0])
+    return ys.astype(np.float32)
+
+
+def numpy_nlssm(y, f, F, h, Hj, Q, R, m0, P0, method: str, smooth: bool,
+                alpha=1.0, beta=2.0, kappa=0.0, jitter=1e-9):
+    """Float64 EKF or UKF (Merwe weights) filter, and RTS smoother when
+    ``smooth``, over the series of ``y`` (n, T, m) with callables on (..., d)
+    states.  Returns ``(mean (n, T, d), cov (n, T, d, d), loglik (n,))``."""
+    y = np.asarray(y, np.float64)
+    n, T, m = y.shape
+    d = len(m0)
+    lam = alpha * alpha * (d + kappa) - d
+    c = d + lam
+    wm = np.full(2 * d + 1, 1.0 / (2.0 * c))
+    wm[0] = lam / c
+    wc = wm.copy()
+    wc[0] += 1.0 - alpha * alpha + beta
+
+    def transform(fn, mean, P):
+        """Mean, covariance and cross-covariance of ``fn`` at ``N(mean, P)``."""
+        if method == "ekf":
+            J = (F if fn is f else Hj)(mean)
+            return fn(mean), J @ P @ np.swapaxes(J, -1, -2), P @ np.swapaxes(J, -1, -2)
+        L = np.linalg.cholesky(P + jitter * np.eye(d))
+        off = math.sqrt(c) * np.swapaxes(L, -1, -2)
+        pts = np.concatenate([mean[:, None], mean[:, None] + off, mean[:, None] - off], 1)
+        out = fn(pts)
+        mu = np.einsum("s,nsd->nd", wm, out)
+        do, di = out - mu[:, None], pts - mean[:, None]
+        return (mu, np.einsum("s,nsi,nsj->nij", wc, do, do),
+                np.einsum("s,nsi,nsj->nij", wc, di, do))
+
+    mean, P = np.broadcast_to(m0, (n, d)).astype(np.float64), np.broadcast_to(P0, (n, d, d))
+    ms, Ps, steps, ll = [], [], [], np.zeros(n)
+    for t in range(T):
+        if t:
+            mp, Pp, C = transform(f, mean, P)
+            Pp = Pp + Q
+            steps.append((mp, Pp, C))
+            mean, P = mp, Pp
+        yh, S, Cxy = transform(h, mean, P)
+        S = S + R
+        S_inv = np.linalg.inv(S)
+        v = y[:, t] - yh
+        K = Cxy @ S_inv
+        mean = mean + np.einsum("nij,nj->ni", K, v)
+        P = P - K @ S @ np.swapaxes(K, -1, -2)
+        ll -= 0.5 * (m * math.log(2.0 * math.pi) + np.linalg.slogdet(S)[1]
+                     + np.einsum("ni,nij,nj->n", v, S_inv, v))
+        ms.append(mean)
+        Ps.append(P)
+    if smooth:
+        for t in range(T - 2, -1, -1):
+            mp, Pp, C = steps[t]
+            G = C @ np.linalg.inv(Pp)
+            ms[t] = ms[t] + np.einsum("nij,nj->ni", G, ms[t + 1] - mp)
+            Ps[t] = Ps[t] + G @ (Ps[t + 1] - Pp) @ np.swapaxes(G, -1, -2)
+    return np.stack(ms, 1), np.stack(Ps, 1), ll
+
+
+def grid_precision(lam_diag, lam_off: float):
+    """The dense float64 precision of a 4-neighbor grid of node precisions
+    ``lam_diag`` (H, W) and uniform coupling."""
+    H, W = lam_diag.shape
+    idx = np.arange(H * W).reshape(H, W)
+    Lam = np.diag(np.asarray(lam_diag, np.float64).ravel())
+    for a, b in ((idx[:, :-1], idx[:, 1:]), (idx[:-1, :], idx[1:, :])):
+        Lam[a.ravel(), b.ravel()] = Lam[b.ravel(), a.ravel()] = lam_off
+    return Lam
+
+
+def hmc_target(d: int):
+    """A correlated Gaussian: mean from -1 to 1, correlation 0.5^|i-j|,
+    scales from 0.5 to 2.  Returns ``(mean, cov)`` in float64."""
+    mean = np.linspace(-1.0, 1.0, d)
+    s = np.linspace(0.5, 2.0, d)
+    idx = np.arange(d)
+    return mean, s[:, None] * 0.5 ** np.abs(idx[:, None] - idx[None, :]) * s[None, :]
+
+
+def numpy_nig(X, t, prior_scale=100.0, a0=2.0, b0=1.0):
+    """Float64 Normal-Inverse-Gamma posterior of ``t = X w + noise`` (batched
+    over leading axes): ``(mean, cov_scale, a, b, log_evidence)``."""
+    from scipy.special import gammaln
+
+    X, t = np.asarray(X, np.float64), np.asarray(t, np.float64)
+    n, d = X.shape[-2:]
+    prec = np.eye(d) / prior_scale + np.swapaxes(X, -1, -2) @ X
+    V = np.linalg.inv(prec)
+    mean = np.einsum("...ij,...j->...i", V, np.einsum("...ni,...n->...i", X, t))
+    a = a0 + 0.5 * n
+    b = b0 + 0.5 * (np.einsum("...n,...n->...", t, t)
+                    - np.einsum("...i,...ij,...j->...", mean, prec, mean))
+    log_ev = (-0.5 * n * math.log(2.0 * math.pi)
+              + 0.5 * (-d * math.log(prior_scale) - np.linalg.slogdet(prec)[1])
+              + a0 * math.log(b0) - a * np.log(b) + gammaln(a) - gammaln(a0))
+    return mean, V, np.full(b.shape, a), b, log_ev
+
+
+def numpy_ep_probit(X, y, n_iters, damping: float, prior_var=1.0, tau_floor=1e-8):
+    """Float64 parallel EP with probit sites, the iteration of
+    ops/ep.py::ep_linear_model, run to the largest of ``n_iters`` (a tuple
+    of iteration counts).  Returns {count: (mean, cov)} after each count."""
+    from scipy.special import log_ndtr
+
+    X, y = np.asarray(X, np.float64), np.asarray(y, np.float64)
+    n, d = X.shape
+
+    def posterior(tau, nu):
+        L = np.linalg.cholesky(np.eye(d) / prior_var + X.T @ (tau[:, None] * X))
+        S = np.linalg.inv(L).T @ np.linalg.inv(L)
+        m = S @ (X.T @ nu)
+        return m, S, np.sum((X @ S) * X, axis=1)
+
+    tau, nu = np.full(n, tau_floor), np.zeros(n)
+    out = {}
+    for it in range(max(n_iters) + 1):
+        if it in n_iters:
+            out[it] = posterior(tau, nu)[:2]
+        if it == max(n_iters):
+            return out
+        m, _, sigma2 = posterior(tau, nu)
+        tau_cav = np.maximum(1.0 / sigma2 - tau, tau_floor)
+        nu_cav = X @ m / sigma2 - nu
+        mu_cav, var_cav = nu_cav / tau_cav, 1.0 / tau_cav
+        s = np.sqrt(1.0 + var_cav)
+        z = y * mu_cav / s
+        ratio = np.exp(-0.5 * z * z - 0.5 * math.log(2.0 * math.pi) - log_ndtr(z))
+        mt = mu_cav + y * var_cav * ratio / s
+        vt = np.maximum(var_cav - var_cav**2 * ratio * (z + ratio) / (1.0 + var_cav), 1e-10)
+        tau = (1.0 - damping) * tau + damping * np.maximum(1.0 / vt - tau_cav, tau_floor)
+        nu = (1.0 - damping) * nu + damping * (mt / vt - nu_cav)
+
+
+def _numpy_kernel(name: str, a, b, lengthscale, variance):
+    r2 = np.sum((np.asarray(a, np.float64)[:, None] - np.asarray(b, np.float64)[None]) ** 2, -1)
+    if name == "rbf":
+        return variance * np.exp(-0.5 * r2 / lengthscale**2)
+    z = math.sqrt(3.0 if name == "matern32" else 5.0) * np.sqrt(r2 + 1e-12) / lengthscale
+    if name == "matern32":
+        return variance * (1.0 + z) * np.exp(-z)
+    return variance * (1.0 + z + z * z / 3.0) * np.exp(-z)
+
+
+def numpy_gp(X, y, Xs, kernel="rbf", lengthscale=1.0, variance=1.0, noise=0.1, jitter=1e-6):
+    """Float64 exact GP: ``(mean, variance)`` at ``Xs`` and the log marginal
+    likelihood."""
+    from scipy.linalg import cho_solve, solve_triangular
+
+    y = np.asarray(y, np.float64)
+    n = len(y)
+    K = _numpy_kernel(kernel, X, X, lengthscale, variance) + (noise + jitter) * np.eye(n)
+    L = np.linalg.cholesky(K)
+    alpha = cho_solve((L, True), y)
+    Ks = _numpy_kernel(kernel, X, Xs, lengthscale, variance)
+    v = solve_triangular(L, Ks, lower=True)
+    lml = -0.5 * y @ alpha - np.log(np.diag(L)).sum() - 0.5 * n * math.log(2.0 * math.pi)
+    return Ks.T @ alpha, np.maximum(variance - np.sum(v * v, 0), 1e-12), lml
+
+
+def numpy_sgpr(X, y, Z, Xs, lengthscale=1.0, variance=1.0, noise=0.1, jitter=1e-6):
+    """Float64 collapsed SGPR bound (RBF) and its predictive ``(mean,
+    variance)`` at ``Xs``."""
+    from scipy.linalg import solve_triangular
+
+    y = np.asarray(y, np.float64)
+    n, m = len(y), len(Z)
+    sigma = math.sqrt(noise)
+    L = np.linalg.cholesky(_numpy_kernel("rbf", Z, Z, lengthscale, variance)
+                           + jitter * (1.0 + variance) * np.eye(m))
+    A = solve_triangular(L, _numpy_kernel("rbf", Z, X, lengthscale, variance), lower=True) / sigma
+    LB = np.linalg.cholesky(np.eye(m) + A @ A.T)
+    c = solve_triangular(LB, A @ y / sigma, lower=True)
+    elbo = (-0.5 * n * math.log(2.0 * math.pi * noise) - np.log(np.diag(LB)).sum()
+            - 0.5 * y @ y / noise + 0.5 * c @ c - 0.5 * (n * variance / noise - np.sum(A * A)))
+    t1 = solve_triangular(L, _numpy_kernel("rbf", Z, Xs, lengthscale, variance), lower=True)
+    t2 = solve_triangular(LB, t1, lower=True)
+    var = variance - np.sum(t1 * t1, 0) + np.sum(t2 * t2, 0)
+    return elbo, t2.T @ c, np.maximum(var, 1e-12)
+
+
+def numpy_bocpd(y, model: str, hazard=0.01, r_max=256):
+    """Float64 BOCPD truncated at ``r_max`` as models/bocpd.py computes it,
+    with the default priors (NIG: mu0 0, kappa0 1, alpha0 1, beta0 1; Beta:
+    1, 1), over the rows of ``y`` (n, T).  Returns ``(run-length log
+    probabilities (n, T, r_max), changepoint probabilities (n, T), log
+    evidence (n,))``."""
+    from scipy.special import gammaln, logsumexp
+
+    y = np.asarray(y, np.float64)
+    n, T = y.shape
+    R = r_max
+    logw = np.full((n, R), -np.inf)
+    logw[:, 0] = 0.0
+    stats = [np.zeros((n, R)) for _ in range(3 if model == "gaussian" else 2)]
+    out, log_Z = np.empty((n, T, R)), np.zeros(n)
+    for t in range(T):
+        yt = y[:, t, None]
+        if model == "gaussian":
+            cnt, s, q = stats
+            kappa = 1.0 + cnt
+            delta = s / kappa
+            alpha = 1.0 + 0.5 * cnt
+            beta = 1.0 + 0.5 * (q - s * delta)
+            nu, scale2 = 2.0 * alpha, beta * (kappa + 1.0) / (alpha * kappa)
+            pred = (gammaln(0.5 * (nu + 1.0)) - gammaln(0.5 * nu)
+                    - 0.5 * np.log(nu * math.pi * scale2)
+                    - 0.5 * (nu + 1.0) * np.log1p((yt - delta) ** 2 / scale2 / nu))
+            upd = [cnt + 1.0, s + yt, q + yt * yt]
+        else:
+            ones, zeros = stats
+            p1 = (1.0 + ones) / (2.0 + ones + zeros)
+            pred = np.where(yt > 0.5, np.log(p1), np.log1p(-p1))
+            upd = [ones + yt, zeros + 1.0 - yt]
+        joint = logw + pred
+        grow = joint + math.log1p(-hazard)
+        log_joint = np.concatenate([logsumexp(joint + math.log(hazard), -1)[:, None],
+                                    grow[:, : R - 2],
+                                    np.logaddexp(grow[:, -2:-1], grow[:, -1:])], -1)
+        step = logsumexp(log_joint, -1)
+        logw = log_joint - step[:, None]
+        out[:, t], log_Z = logw, log_Z + step
+        keep = grow[:, -1:] > grow[:, -2:-1]
+        stats = [np.concatenate([np.zeros((n, 1)), u[:, : R - 2],
+                                 np.where(keep, u[:, -1:], u[:, -2:-1])], -1) for u in upd]
+    return out, np.exp(out[..., 0]) + np.exp(out[..., 1]), log_Z
+
+
+def check_hmc(samples, accept_rate, step_size, d: int, name: str) -> dict:
+    """Hold HMC draws ``samples`` (chains, draws, d) of :func:`hmc_target` to
+    its mean and covariance within ZOO_TOL's Monte-Carlo bars, and the
+    acceptance rates to (0.4, 1]; raise SmokeFailure otherwise."""
+    mu, cov = hmc_target(d)
+    draws = _host64(samples)
+    C = draws.shape[0]
+    pooled = draws.reshape(-1, d).mean(0)
+    se_mean = draws.mean(1).std(0) / math.sqrt(C)
+    centered = draws - pooled
+    second = np.einsum("csi,csj->cij", centered, centered) / draws.shape[1]
+    pooled_cov = second.mean(0)
+    se_cov = second.std(0) / math.sqrt(C)
+    scale = np.sqrt(np.outer(np.diag(cov), np.diag(cov)))
+    z_mean = np.abs(pooled - mu) / (ZOO_TOL["hmc_se"] * se_mean + ZOO_TOL["hmc_bias"])
+    z_cov = np.abs(pooled_cov - cov) / (ZOO_TOL["hmc_se"] * se_cov + ZOO_TOL["hmc_bias"] * scale)
+    accept = _host64(accept_rate)
+    if not (np.isfinite(draws).all() and z_mean.max() <= 1.0 and z_cov.max() <= 1.0
+            and accept.min() > ZOO_TOL["hmc_accept"] and accept.max() <= 1.0):
+        raise SmokeFailure(f"{name}: mean {z_mean.max()}, cov {z_cov.max()} of their bars, "
+                           f"acceptance {accept.min()}..{accept.max()}")
+    return {"against": "the target's mean and covariance", "chains": C,
+            "max_mean_err": float(np.abs(pooled - mu).max()),
+            "max_cov_err": float(np.abs(pooled_cov - cov).max()),
+            "worst_share_of_bar": [float(z_mean.max()), float(z_cov.max())],
+            "accept_rate": [float(accept.min()), float(accept.mean())],
+            "step_size": [float(_host64(step_size).min()), float(_host64(step_size).max())]}
+
+
+def zoo_data(shapes=ZOO_SHAPES, seed: int = 0) -> dict:
+    """Every input of the zoo phases as float32 numpy arrays, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    data = {}
+    R, T = shapes["nlssm"]
+    data["pendulum"] = pendulum_series(R, T, seed + 1)
+    data["linear"] = random_walk(R, T, seed + 2)[..., None]
+    R, H, W, _ = shapes["gabp"]
+    data["gabp_lam"] = (4.0 + 0.5 * rng.random((H, W))).astype(f32)
+    data["gabp_eta"] = rng.normal(size=(R, H, W)).astype(f32)
+    n, d = shapes["glm"]
+    X = rng.normal(size=(n, d)) / math.sqrt(d)
+    w = rng.normal(size=d) * 2.0
+    data["X"] = X.astype(f32)
+    data["y_lin"] = (X @ w + 0.5 * rng.normal(size=n)).astype(f32)
+    data["y_probit"] = np.where(rng.random(n) < 0.5 * (1.0 + np.tanh(0.8 * (X @ w))), 1.0,
+                                -1.0).astype(f32)
+    data["y_count"] = rng.poisson(np.exp(0.5 * (X @ w))).astype(f32)
+    R, T, p = shapes["ar"]
+    y = np.zeros((R, T))
+    for t in range(p, T):
+        y[:, t] = y[:, t - p:t][:, ::-1] @ ZOO_AR + 0.3 * rng.normal(size=R)
+    data["ar"] = y.astype(f32)
+    R, T = shapes["latent_ar"]
+    data["latent_ar"] = (y[:R, :T] + 0.5 * rng.normal(size=(R, T))).astype(f32)
+    n = shapes["gp"]
+    data["gp_x"] = np.sort(rng.uniform(0.0, 10.0, n)).astype(f32)[:, None]
+    data["gp_y"] = (np.sin(data["gp_x"][:, 0]) + 0.3 * rng.normal(size=n)).astype(f32)
+    n, m = shapes["sgpr"]
+    data["sgpr_x"] = rng.uniform(0.0, float(m), n).astype(f32)[:, None]
+    data["sgpr_y"] = (np.sin(data["sgpr_x"][:, 0]) + 0.3 * rng.normal(size=n)).astype(f32)
+    data["sgpr_z"] = (np.arange(m) + 0.5).astype(f32)[:, None]
+    n = shapes["gpc"]
+    data["gpc_x"] = rng.normal(size=(n, 2)).astype(f32)
+    data["gpc_y"] = np.where(np.sin(2.0 * data["gpc_x"][:, 0]) + 0.5 * data["gpc_x"][:, 1]
+                             + 0.2 * rng.normal(size=n) > 0, 1.0, -1.0).astype(f32)
+    n, n_long = shapes["gpssm"]
+    t_long = np.cumsum(rng.uniform(0.01, 0.05, n_long))
+    data["gpssm_t_long"] = t_long.astype(f32)
+    data["gpssm_y_long"] = (np.sin(t_long) + 0.3 * rng.normal(size=n_long)).astype(f32)
+    n, d, q, _ = shapes["ppca"]
+    Wt = rng.normal(size=(d, q))
+    Z = rng.normal(size=(n, q))
+    data["ppca"] = (Z @ Wt.T + 0.7 * rng.normal(size=(n, d)) + 1.0).astype(f32)
+    psi = rng.uniform(0.2, 1.5, d)
+    data["fa"] = (Z @ Wt.T + np.sqrt(psi) * rng.normal(size=(n, d))).astype(f32)
+    data["fa_init"] = (0.1 * rng.normal(size=(d, q))).astype(f32)
+    R, T, _ = shapes["bocpd"]
+    jumps = rng.random((R, T)) < 1.0 / 150.0
+    level = np.cumsum(jumps * rng.normal(scale=3.0, size=(R, T)), -1)
+    data["bocpd_gauss"] = (level + rng.normal(size=(R, T))).astype(f32)
+    rate = 1.0 / (1.0 + np.exp(-np.cumsum(jumps * rng.normal(scale=2.0, size=(R, T)), -1)))
+    data["bocpd_bern"] = (rng.random((R, T)) < rate).astype(f32)
+    return data
+
+
+def zoo_calls(torch, models, ops, device, data: dict, shapes=ZOO_SHAPES, seed: int = 0) -> dict:
+    """The zoo's calls on ``device``, each a function of nothing, on ``data``
+    (rows cut to what the arrays hold); the HMC chains and the default
+    inits draw from generators seeded with ``seed``."""
+    def t(name):
+        return torch.from_numpy(data[name]).to(device)
+
+    f, h = _pendulum_torch(torch)
+    pend = models.NonlinearSSM(f, h, **{k: torch.tensor(v, dtype=torch.float32, device=device)
+                                        for k, v in ZOO_PENDULUM.items()})
+    lin = {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in ZOO_LINEAR.items()}
+    A, H = lin["A"], lin["H"]
+    linear = models.NonlinearSSM(lambda x: A @ x, lambda x: H @ x,
+                                 lin["Q"], lin["R"], lin["m0"], lin["P0"])
+    y_pend, y_lin = t("pendulum"), t("linear")
+    calls = {}
+    for method in ("ekf", "ukf"):
+        calls[f"NonlinearSSM.filter {method}"] = lambda m=method: pend.filter(y_pend, method=m)
+        calls[f"NonlinearSSM.smooth {method}"] = lambda m=method: pend.smooth(y_pend, method=m)
+        calls[f"NonlinearSSM.log_evidence {method}"] = (
+            lambda m=method: pend.log_evidence(y_pend, method=m))
+        calls[f"linear NonlinearSSM.smooth {method}"] = (
+            lambda m=method: linear.smooth(y_lin, method=m))
+
+    *_, n_iters = shapes["gabp"]
+    lam, eta = t("gabp_lam"), t("gabp_eta")
+    Hg, Wg = lam.shape
+    edges = ops.grid_edges(Hg, Wg)
+    off = torch.full((len(edges),), -0.8, device=device)
+    calls["gabp_grid_solve"] = lambda: ops.gabp_grid_solve(lam, eta, -0.8, n_iters=n_iters)
+    calls["gabp_solve"] = lambda: ops.gabp_solve(lam.reshape(-1), eta.reshape(eta.shape[0], -1),
+                                                  edges, off, n_iters=n_iters)
+
+    C, d, n_warm, n_samp, n_leap = shapes["hmc"]
+    mu_np, cov_np = hmc_target(d)
+    mu = torch.tensor(mu_np, dtype=torch.float32, device=device)
+    prec = torch.tensor(np.linalg.inv(cov_np), dtype=torch.float32, device=device)
+
+    def log_density(x):
+        r = x - mu
+        return -0.5 * r @ (prec @ r)
+
+    def hmc():
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return ops.hmc_sample(gen, log_density, torch.zeros((C, d), device=device),
+                              n_samples=n_samp, n_warmup=n_warm, n_leapfrog=n_leap, n_chains=C)
+
+    calls["HMC"] = hmc
+
+    X, y_lin_glm, y_probit, y_count = t("X"), t("y_lin"), t("y_probit"), t("y_count")
+    calls["BayesianLinearRegression.fit"] = lambda: models.BayesianLinearRegression().fit(
+        X, y_lin_glm)
+    calls["ep_linear_model probit"] = lambda: ops.ep_linear_model(
+        X, ops.probit_tilted_moments(y_probit))
+    calls["EPClassifier probit"] = lambda: models.EPClassifier().fit(X, y_probit)
+
+    def gaussian_log_lik(z):
+        return -0.5 * (y_lin_glm[:, None] - z) ** 2 / 0.25 - 0.5 * math.log(2.0 * math.pi * 0.25)
+
+    calls["cvi Gaussian, one step"] = lambda: ops.cvi_linear_model(
+        X, gaussian_log_lik, n_iters=1, step_size=1.0)
+    calls["cvi logistic"] = lambda: ops.cvi_linear_model(
+        X, lambda z: torch.nn.functional.logsigmoid(y_probit[:, None] * z))
+    calls["PoissonRegression.fit"] = lambda: models.PoissonRegression().fit(X, y_count)
+
+    *_, p = shapes["ar"]
+    y_ar, y_lat = t("ar"), t("latent_ar")
+    calls["BayesianAR.fit"] = lambda: models.BayesianAR(p=p).fit(y_ar)
+    coeffs = torch.tensor(ZOO_AR, dtype=torch.float32, device=device)
+    calls["latent_ar_smooth"] = lambda: models.latent_ar_smooth(y_lat, coeffs, 0.09, 0.25)
+
+    gp_x, gp_y = t("gp_x"), t("gp_y")
+    xs = torch.linspace(0.0, 10.0, 512, device=device)[:, None]
+
+    def gp():
+        return models.GP(**ZOO_GP).fit(gp_x, gp_y).predict(xs)
+
+    calls["GP.fit + predict"] = gp
+    sgpr_x, sgpr_y, sgpr_z = t("sgpr_x"), t("sgpr_y"), t("sgpr_z")
+    sgpr_xs = torch.linspace(0.0, float(sgpr_z.shape[0]), 512, device=device)[:, None]
+
+    def sgpr():
+        post = models.SGPR(**ZOO_GP).fit(sgpr_x, sgpr_y, sgpr_z)
+        return (post.elbo, *post.predict(sgpr_xs))
+
+    calls["SGPR.fit + predict"] = sgpr
+    gpc_x, gpc_y = t("gpc_x"), t("gpc_y")
+
+    def gpc():
+        post = models.GPClassifier().fit(gpc_x, gpc_y)
+        return (post.latent_mean, post.site_delta, post.predict_proba(gpc_x))
+
+    calls["GPClassifier.fit"] = gpc
+    n_gpssm = shapes["gpssm"][0]
+    t_long, y_long = t("gpssm_t_long"), t("gpssm_y_long")
+    for kern in ("matern32", "matern52"):
+        model = models.GPSSM(kernel=kern, lengthscale=2.0, variance=1.0, noise=0.1)
+        calls[f"GPSSM {kern}"] = lambda model=model: model.posterior(t_long[:n_gpssm],
+                                                                    y_long[:n_gpssm])
+        calls[f"GPSSM {kern} long"] = lambda model=model: model.posterior(t_long, y_long)
+
+    *_, q, n_em = shapes["ppca"]
+    Y, Y_fa, fa_init = t("ppca"), t("fa"), t("fa_init")
+    calls["ppca_closed_form"] = lambda: models.ppca_closed_form(Y, q)
+    calls["PPCA.fit_em"] = lambda: models.PPCA(q).fit_em(Y, n_iters=n_em)
+    calls["FactorAnalysis.fit_em"] = lambda: models.FactorAnalysis(q).fit_em(
+        Y_fa, n_iters=n_em, init=(fa_init, torch.ones(Y_fa.shape[1], device=device)))
+
+    *_, r_max = shapes["bocpd"]
+    y_g, y_b = t("bocpd_gauss"), t("bocpd_bern")
+    calls["BOCPD GaussianNIG"] = lambda: models.BOCPD(r_max=r_max).filter(y_g)
+    calls["BOCPD BernoulliBeta"] = lambda: models.BOCPD(models.BernoulliBeta(),
+                                                        r_max=r_max).filter(y_b)
+    return calls
+
+
+def _rows(data: dict, cuts: dict) -> dict:
+    """``data`` with the leading axis of the named arrays cut."""
+    return {k: v[:cuts[k]] if k in cuts else v for k, v in data.items()}
+
+
+def run_zoo_main_path(torch, models, ops, device, shapes=ZOO_SHAPES, refs=ZOO_REF,
+                      seed: int = 0, data=None, times=None, stages=None) -> list:
+    """Drive the rest of the zoo once on ``device`` through its entry points,
+    and check each result against float64 numpy, the port's own CPU run on
+    the first rows, or both (ZOO_TOL).  Returns the checks.  ``data``
+    (zoo_data's) is made from ``seed`` when not given; on a card, ``times``
+    (a dict) receives each call's time in ms (CUDA events), and ``stages``
+    (a dict) the seconds of each stage."""
+    clock = [time.perf_counter()]
+
+    def stage(name):
+        clock.append(time.perf_counter())
+        if stages is not None:
+            stages[name] = clock[-1] - clock[-2]
+
+    data = zoo_data(shapes, seed) if data is None else data
+    calls = zoo_calls(torch, models, ops, device, data, shapes, seed)
+    stage("inputs")
+    outs = {}
+    for name, fn in calls.items():
+        if name.endswith(" long"):
+            continue  # timed in phase 21 only
+        if times is None or device == "cpu":
+            outs[name] = fn()
+            continue
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs[name] = fn()
+        end.record()
+        end.synchronize()
+        times[name] = start.elapsed_time(end)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    stage("card calls")
+    n_cpu = refs["cpu_n"]
+    cpu_data = _rows(data, {"pendulum": refs["nlssm_cpu"], "X": n_cpu, "y_probit": n_cpu,
+                            "y_count": n_cpu, "gpc_x": refs["gpc_cpu"],
+                            "gpc_y": refs["gpc_cpu"], "fa": n_cpu,
+                            "bocpd_gauss": refs["bocpd_cpu"], "bocpd_bern": refs["bocpd_cpu"]})
+    cpu_names = [n for n in calls if n.startswith(("NonlinearSSM.filter", "NonlinearSSM.smooth",
+                                                   "cvi logistic", "Poisson", "FactorAnalysis",
+                                                   "BOCPD"))]
+    cpu_calls = zoo_calls(torch, models, ops, "cpu", cpu_data, shapes, seed)
+    cpu = {name: cpu_calls[name]() for name in cpu_names}
+    small = {}  # the card's run on the CPU run's inputs, where the full one differs
+    small_calls = zoo_calls(torch, models, ops, device, cpu_data, shapes, seed)
+    for name in ("cvi logistic", "PoissonRegression.fit", "GPClassifier.fit",
+                 "FactorAnalysis.fit_em"):
+        small[name] = small_calls[name]()
+    cpu["GPClassifier.fit"] = cpu_calls["GPClassifier.fit"]()
+    stage("cpu runs")
+    checks = []
+
+    def check(path, against, tol, pairs, **extra):
+        atol, rtol = tol if isinstance(tol, tuple) else (0.0, tol)
+        errs = {field: check_close(f"{path} {field} vs {against}", got, want, atol, rtol)
+                for field, got, want in pairs}
+        checks.append({"path": path, "against": against, "atol": atol, "rtol": rtol, **extra,
+                       "max_abs_err": errs})
+
+    # NLSSM.  The log evidence sums T terms of either sign: rtol on the sum
+    # and atol a step.
+    f, F, h, Hj = _pendulum_numpy()
+    evidence = (ZOO_TOL["evidence_step"] * data["pendulum"].shape[1], ZOO_TOL["evidence"])
+    n_ref, n_cpu_nl = refs["nlssm"], refs["nlssm_cpu"]
+    p = ZOO_PENDULUM
+    for method in ("ekf", "ukf"):
+        for sweep in ("filter", "smooth"):
+            name = f"NonlinearSSM.{sweep} {method}"
+            got = outs[name]
+            want = numpy_nlssm(data["pendulum"][:n_ref], f, F, h, Hj, p["Q"], p["R"], p["m0"],
+                               p["P0"], method, sweep == "smooth")
+            check(name, "float64 numpy " + method.upper(), ZOO_TOL["nlssm_f64"],
+                  [("mean", got.mean[:n_ref], want[0]), ("cov", got.cov[:n_ref], want[1])],
+                  replicas=n_ref)
+            check(name, "float64 numpy " + method.upper(), evidence,
+                  [("loglik", got.loglik[:n_ref], want[2])], replicas=n_ref)
+            check(name, "port on cpu", ZOO_TOL["nlssm_cpu"],
+                  [(k, g[:n_cpu_nl], w) for k, g, w in zip(got._fields, got, cpu[name])],
+                  replicas=n_cpu_nl)
+        name = f"NonlinearSSM.log_evidence {method}"
+        check(name, "filter().loglik", ZOO_TOL["nlssm_cpu"],
+              [("loglik", outs[name], outs[f"NonlinearSSM.filter {method}"].loglik)])
+        name = f"linear NonlinearSSM.smooth {method}"
+        lin = ZOO_LINEAR
+        _, _, ll, sm, sP = numpy_kalman_mv(data["linear"][:n_ref], lin["A"], lin["Q"], lin["H"],
+                                           lin["R"], lin["m0"], lin["P0"])
+        got = outs[name]
+        check(name, "float64 RTS", ZOO_TOL["nlssm_linear"],
+              [("mean", got.mean[:n_ref], sm), ("cov", got.cov[:n_ref],
+                                                np.broadcast_to(sP, got.cov[:n_ref].shape))],
+              replicas=n_ref)
+        check(name, "float64 Kalman filter", evidence, [("loglik", got.loglik[:n_ref], ll)],
+              replicas=n_ref)
+    if outs["NonlinearSSM.smooth ukf"].mean.shape != data["pendulum"].shape[:2] + (2,):
+        raise SmokeFailure("NonlinearSSM.smooth: wrong shape")
+
+    stage("references: NLSSM")
+
+    # GaBP.
+    grid, edge = outs["gabp_grid_solve"], outs["gabp_solve"]
+    n_g = refs["gabp"]
+    from scipy.linalg import cho_factor, cho_solve
+
+    eta = data["gabp_eta"][:n_g].reshape(n_g, -1).T.astype(np.float64)
+    mean = cho_solve(cho_factor(grid_precision(data["gabp_lam"], -0.8), lower=True), eta)
+    mean = mean.T.reshape(data["gabp_eta"][:n_g].shape)
+    check("gabp_grid_solve", "float64 dense solve", ZOO_TOL["gabp"],
+          [("mean", grid.mean[:n_g], mean)], grids=n_g)
+    check("gabp_solve", "float64 dense solve", ZOO_TOL["gabp"],
+          [("mean", edge.mean[:n_g].reshape(mean.shape), mean)], grids=n_g)
+    check("gabp_solve", "gabp_grid_solve", ZOO_TOL["gabp"],
+          [("mean", edge.mean, grid.mean.reshape(edge.mean.shape)),
+           ("variance", edge.variance, grid.variance.reshape(-1))])
+    if not (0 < float(grid.variance.min()) and float(grid.delta) < 1e-4):
+        raise SmokeFailure(f"gabp_grid_solve did not converge: delta {float(grid.delta)}")
+
+    stage("references: GaBP")
+
+    # HMC.
+    res = outs["HMC"]
+    checks.append({**check_hmc(res.samples, res.accept_rate, res.step_size, shapes["hmc"][1],
+                               "HMC"), "path": "HMC"})
+
+    stage("references: HMC")
+
+    # EP, CVI and the GLMs.
+    X64 = data["X"].astype(np.float64)
+    want = numpy_nig(data["X"], data["y_lin"])
+    got = outs["BayesianLinearRegression.fit"]
+    check("BayesianLinearRegression.fit", "float64 NIG", ZOO_TOL["nig_mean"],
+          [("mean", got.mean, want[0])])
+    check("BayesianLinearRegression.fit", "float64 NIG", ZOO_TOL["nig_cov"],
+          [("cov_scale", got.cov_scale, want[1])])
+    check("BayesianLinearRegression.fit", "float64 NIG", ZOO_TOL["nig_a"], [("a", got.a, want[2])])
+    check("BayesianLinearRegression.fit", "float64 NIG", ZOO_TOL["nig_b"], [("b", got.b, want[3])])
+    check("BayesianLinearRegression.fit", "float64 NIG", ZOO_TOL["evidence"],
+          [("log_evidence", got.log_evidence, want[4])])
+    ep = numpy_ep_probit(data["X"], data["y_probit"], (30, 40), 0.8)
+    for name, n_iters in (("ep_linear_model probit", 30), ("EPClassifier probit", 40)):
+        m, S = ep[n_iters]
+        got = outs[name]
+        check(name, "float64 numpy EP", ZOO_TOL["ep_mean"], [("mean", got.mean, m)],
+              iterations=n_iters)
+        check(name, "float64 numpy EP", ZOO_TOL["ep_cov"], [("cov", got.cov, S)],
+              iterations=n_iters)
+    S = np.linalg.inv(np.eye(X64.shape[1]) + X64.T @ X64 / 0.25)
+    m = S @ (X64.T @ data["y_lin"].astype(np.float64)) / 0.25
+    got = outs["cvi Gaussian, one step"]
+    check("cvi Gaussian, one step", "exact posterior", ZOO_TOL["cvi_mean"], [("mean", got.mean, m)])
+    check("cvi Gaussian, one step", "exact posterior", ZOO_TOL["cvi_cov"], [("cov", got.cov, S)])
+    for name in ("cvi logistic", "PoissonRegression.fit"):
+        got, want = small[name], cpu[name]
+        pairs = [("mean", got.mean, want.mean), ("cov", got.cov, want.cov)]
+        if name == "cvi logistic":
+            pairs.append(("elbo_trace", got.elbo_trace, want.elbo_trace))
+        check(name, "port on cpu", ZOO_TOL["cpu"], pairs, n=n_cpu)
+
+    stage("references: GLMs, EP, CVI")
+
+    # AR.
+    n_ar = refs["ar"]
+    *_, p_ar = shapes["ar"]
+    y_ar = data["ar"][:n_ar]
+    lags = np.stack([y_ar[:, p_ar - 1 - k: y_ar.shape[1] - 1 - k] for k in range(p_ar)], -1)
+    want = numpy_nig(lags, y_ar[:, p_ar:])
+    got = outs["BayesianAR.fit"]
+    for field, i, tol in (("mean", 0, "nig_mean"), ("cov_scale", 1, "nig_cov"), ("a", 2, "nig_a"),
+                          ("b", 3, "nig_b"), ("log_evidence", 4, "evidence")):
+        check("BayesianAR.fit", "float64 NIG", ZOO_TOL[tol],
+              [(field, getattr(got, field)[:n_ar], want[i])], series=n_ar)
+    n_lat = refs["latent_ar"]
+    p_lat = len(ZOO_AR)
+    A_c = np.vstack([ZOO_AR, np.eye(p_lat)[:-1]])
+    Q_c = np.zeros((p_lat, p_lat))
+    Q_c[0, 0] = 0.09
+    Q_c += 1e-9 * np.eye(p_lat)
+    _, _, _, sm, sP = numpy_kalman_mv(data["latent_ar"][:n_lat, :, None], A_c, Q_c,
+                                      np.eye(p_lat)[:1], [[0.25]], np.zeros(p_lat),
+                                      10.0 * np.eye(p_lat))
+    got = outs["latent_ar_smooth"]
+    check("latent_ar_smooth", "float64 RTS", (MV_TOL["assoc"], MV_TOL["assoc"]),
+          [("mean", got.mean[:n_lat], sm),
+           ("cov", got.cov[:n_lat], np.broadcast_to(sP, got.cov[:n_lat].shape))], replicas=n_lat)
+
+    stage("references: AR")
+
+    # Gaussian processes.
+    xs = np.linspace(0.0, 10.0, 512, dtype=np.float32)[:, None]
+    mean, var, _ = numpy_gp(data["gp_x"], data["gp_y"], xs, **ZOO_GP)
+    got = outs["GP.fit + predict"]
+    check("GP.fit + predict", "float64 numpy GP", ZOO_TOL["gp_mean"], [("mean", got[0], mean)])
+    check("GP.fit + predict", "float64 numpy GP", ZOO_TOL["gp_var"], [("variance", got[1], var)])
+    m_ind = data["sgpr_z"].shape[0]
+    sgpr_xs = np.linspace(0.0, float(m_ind), 512, dtype=np.float32)[:, None]
+    elbo, mean, var = numpy_sgpr(data["sgpr_x"], data["sgpr_y"], data["sgpr_z"], sgpr_xs, **ZOO_GP)
+    got = outs["SGPR.fit + predict"]
+    # The bound is a difference of terms of the size of yᵀy/σ²: float32 holds
+    # it to ZOO_TOL["bound"] of that size.
+    yy = float(np.sum(np.square(data["sgpr_y"], dtype=np.float64))) / ZOO_GP["noise"]
+    check("SGPR.fit + predict", "float64 collapsed bound", (ZOO_TOL["bound"] * yy, 0.0),
+          [("elbo", got[0], elbo)])
+    check("SGPR.fit + predict", "float64 collapsed bound", ZOO_TOL["gp_mean"],
+          [("mean", got[1], mean)])
+    check("SGPR.fit + predict", "float64 collapsed bound", ZOO_TOL["gp_var"],
+          [("variance", got[2], var)])
+    n_small = shapes["gp"]
+    xb = torch.from_numpy(data["sgpr_x"][:n_small]).to(device)
+    yb = torch.from_numpy(data["sgpr_y"][:n_small]).to(device)
+    zb = torch.from_numpy(data["sgpr_z"]).to(device)
+    bound = float(models.SGPR(**ZOO_GP).elbo(xb, yb, zb))
+    lml = float(models.GP(**ZOO_GP).log_marginal_likelihood(xb, yb))
+    if not bound <= lml + ZOO_TOL["evidence"] * abs(lml):
+        raise SmokeFailure(f"SGPR bound {bound} above the exact LML {lml}")
+    checks.append({"path": "SGPR.elbo", "against": "GP LML (a bound)", "n": n_small,
+                   "elbo": bound, "lml": lml})
+    latent, delta, proba = outs["GPClassifier.fit"]
+    accuracy = float(((proba > 0.5).float() * 2 - 1 == torch.from_numpy(data["gpc_y"]).to(
+        device)).float().mean())
+    if not (float(delta) < 1e-3 and accuracy > 0.85 and torch.isfinite(latent).all()):
+        raise SmokeFailure(f"GPClassifier: site change {float(delta)}, accuracy {accuracy}")
+    checks.append({"path": "GPClassifier.fit", "against": "convergence and training accuracy",
+                   "n": shapes["gpc"], "site_delta": float(delta), "accuracy": accuracy})
+    got, want = small["GPClassifier.fit"], cpu["GPClassifier.fit"]
+    check("GPClassifier.fit", "port on cpu", ZOO_TOL["cpu"],
+          [("latent_mean", got[0], want[0]), ("predict_proba", got[2], want[2])],
+          n=refs["gpc_cpu"])
+    n_ss = shapes["gpssm"][0]
+    t_ss, y_ss = data["gpssm_t_long"][:n_ss], data["gpssm_y_long"][:n_ss]
+    for kern in ("matern32", "matern52"):
+        name = f"GPSSM {kern}"
+        got = outs[name]
+        params = dict(lengthscale=2.0, variance=1.0, noise=0.1)
+        t_dev = torch.from_numpy(t_ss[:, None]).to(device)
+        exact = models.GP(kernel=kern, **params).fit(t_dev, torch.from_numpy(y_ss).to(device),
+                                                     jitter=0.0)
+        e_mean, e_var = exact.predict(t_dev)
+        check(name, "port's exact GP", ZOO_TOL["gp_mean"], [("mean", got.mean, e_mean)], T=n_ss)
+        check(name, "port's exact GP", ZOO_TOL["gpssm_var"], [("variance", got.variance, e_var)],
+              T=n_ss)
+        at = slice(None, None, refs["gpssm_stride"])
+        mean, var, lml = numpy_gp(t_ss[:, None], y_ss, t_ss[at, None], kern, jitter=0.0,
+                                  **params)
+        check(name, "float64 numpy GP", ZOO_TOL["gp_mean"], [("mean", got.mean[at], mean)],
+              T=n_ss, stride=refs["gpssm_stride"])
+        check(name, "float64 numpy GP", ZOO_TOL["gpssm_var"],
+              [("variance", got.variance[at], var)], T=n_ss, stride=refs["gpssm_stride"])
+        check(name, "float64 numpy GP", ZOO_TOL["evidence"],
+              [("lml", got.log_marginal_likelihood, lml)], T=n_ss)
+
+    stage("references: GPs")
+
+    # PPCA and FA.
+    *_, q, _ = shapes["ppca"]
+    Y64 = data["ppca"].astype(np.float64)
+    Yc = Y64 - Y64.mean(0)
+    evals, evecs = np.linalg.eigh(Yc.T @ Yc / len(Yc))
+    d_p = Y64.shape[1]
+    sigma2 = evals[: d_p - q].mean()
+    W = evecs[:, -q:] * np.sqrt(np.maximum(evals[-q:] - sigma2, 0.0))
+    got = outs["ppca_closed_form"]
+    check("ppca_closed_form", "float64 numpy eigh", ZOO_TOL["ppca_wwt"],
+          [("W Wᵀ", got.W @ got.W.T, W @ W.T)])
+    check("ppca_closed_form", "float64 numpy eigh", ZOO_TOL["ppca_sigma2"],
+          [("sigma2", got.sigma2, sigma2)])
+    C_full = W @ W.T + sigma2 * np.eye(d_p)
+    ll = -0.5 * len(Yc) * (d_p * math.log(2.0 * math.pi) + np.linalg.slogdet(C_full)[1]
+                           + np.trace(np.linalg.solve(C_full, Yc.T @ Yc / len(Yc))))
+    check("ppca_closed_form", "float64 numpy eigh", ZOO_TOL["ppca_ll"],
+          [("log_likelihood", got.log_likelihood, ll)])
+    em = outs["PPCA.fit_em"]
+
+    def projector(W):
+        Qm, _ = np.linalg.qr(_host64(W))
+        return Qm @ Qm.T
+
+    check("PPCA.fit_em", "closed form's subspace", (ZOO_TOL["projector"], 0.0),
+          [("projector", projector(em.W), projector(got.W))])
+    for name in ("PPCA.fit_em", "FactorAnalysis.fit_em"):
+        lls = _host64(outs[name].log_likelihood)
+        drop = float(np.min(np.diff(lls) / np.abs(lls[1:])))
+        if not (np.isfinite(lls).all() and drop > -ZOO_TOL["monotone"]):
+            raise SmokeFailure(f"{name}: the log-likelihood trace fell by {drop} of its size")
+        checks.append({"path": name, "against": "a non-decreasing trace", "iterations": len(lls),
+                       "bar": ZOO_TOL["monotone"], "largest_relative_drop": drop})
+    got, want = small["FactorAnalysis.fit_em"], cpu["FactorAnalysis.fit_em"]
+    check("FactorAnalysis.fit_em", "port on cpu", ZOO_TOL["cpu"],
+          [("W Wᵀ", got.W @ got.W.T, want.W @ want.W.T), ("psi", got.psi, want.psi),
+           ("log_likelihood", got.log_likelihood, want.log_likelihood)], n=n_cpu)
+
+    stage("references: PPCA, FA")
+
+    # BOCPD.
+    n_b, n_bc = refs["bocpd"], refs["bocpd_cpu"]
+    for name, key, model in (("BOCPD GaussianNIG", "bocpd_gauss", "gaussian"),
+                             ("BOCPD BernoulliBeta", "bocpd_bern", "bernoulli")):
+        got = outs[name]
+        logp, cp, log_z = numpy_bocpd(data[key][:n_b], model, r_max=shapes["bocpd"][2])
+        mass = logp > -25.0
+        check(name, "float64 numpy BOCPD", ZOO_TOL["bocpd"],
+              [("run_length_logprobs", got.run_length_logprobs[:n_b][torch.from_numpy(mass)],
+                logp[mass]), ("changepoint_prob", got.changepoint_prob[:n_b], cp)],
+              replicas=n_b)
+        check(name, "float64 numpy BOCPD", ZOO_TOL["bocpd_evidence"],
+              [("log_evidence", got.log_evidence[:n_b], log_z)], replicas=n_b)
+        want = cpu[name]
+        check(name, "port on cpu", ZOO_TOL["cpu"],
+              [("changepoint_prob", got.changepoint_prob[:n_bc], want.changepoint_prob),
+               ("log_evidence", got.log_evidence[:n_bc], want.log_evidence)], replicas=n_bc)
+    stage("references: BOCPD")
+    return checks
+
+
+def phase_zoo_main_path(torch, models, ops, kernels, card: str) -> dict:
+    """The rest of the zoo at ZOO_SHAPES on the card: the checks, K1-K4's
+    counts over them (all 0), then each call's time (CUDA events, the median
+    of 3 calls, 1 past ZOO_SLOW_MS, the checked call's past ZOO_KEEP_MS),
+    device time, kernels and the host's share from one profiled call; the
+    GPSSM at the longer T is timed once, unprofiled (some 550,000 kernels).
+    Returns {"launches", "times"}."""
+    start = time.perf_counter()
+    _kernel_launches_zero(kernels)
+    data = zoo_data(ZOO_SHAPES)
+    first, stages = {}, {}
+    checks = run_zoo_main_path(torch, models, ops, "cuda", data=data, times=first, stages=stages)
+    launches = _check_no_kernel_launched(kernels, "zoo_main_path")
+    for check in checks:
+        emit(phase="zoo_main_path", **check)
+    emit(phase="zoo_main_path", seconds=time.perf_counter() - start, stages=stages)
+    start = time.perf_counter()
+    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
+    result = {}
+    for name, fn in zoo_calls(torch, models, ops, "cuda", data).items():
+        if (name.startswith(("NonlinearSSM.log_evidence", "linear "))
+                or name == "GPSSM matern52 long"):
+            continue  # the filter's call, the linear check's; one long GPSSM is enough
+        if name.endswith(" long"):
+            ms = median_ms(torch, fn, flush, runs=1, warmup=0)
+            result[name] = ms
+            emit(phase="zoo_times", path=name, T=ZOO_SHAPES["gpssm"][1], ms=ms,
+                 device_ms="not measured", card=card)
+            continue
+        slow = first[name] > ZOO_SLOW_MS
+        if first[name] > ZOO_KEEP_MS:
+            ms = first[name]
+        else:
+            ms = median_ms(torch, fn, flush, runs=1 if slow else 3, warmup=0)
+        result[name] = ms
+        count = _profile_once(torch, fn)
+        if not count["kernels"]:  # a profile now and then holds no kernel record
+            count = _profile_once(torch, fn)
+        emit(phase="zoo_times", path=name, ms=ms, runs=1 if slow else 3,
+             from_checked_run=first[name] > ZOO_KEEP_MS,
+             device_ms=count["device_ms"], host_share=1.0 - count["device_ms"] / ms,
+             kernels_per_call=count["kernels"], copies_per_call=count["copies"],
+             top_kernels=count["top"], card=card)
+    emit(phase="zoo_times", seconds=time.perf_counter() - start)
+    return {"launches": launches, "times": result}
+
+
 def main() -> None:
     import torch
 
@@ -3379,6 +3649,7 @@ def main() -> None:
     phase_mv_times(torch, models, device["nvidia_smi"])
     worlds = phase_parallel_main_path(torch, device["nvidia_smi"])
     phase_ssm_main_path(torch, models, kernels, device["nvidia_smi"])
+    phase_zoo_main_path(torch, models, ops, kernels, device["nvidia_smi"])
     # Each kernel's launches over every run of a main path that launches it.
     by_phase = {name: {"main path": count, **{
         f"parallel_main_path {world}": run["launches"][name] for world, run in worlds.items()}}

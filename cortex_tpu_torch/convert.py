@@ -1,4 +1,4 @@
-"""Carry model parameters, smoother operators, priors and states across from numpy.
+"""Carry model parameters, smoother operators, priors, states and fitted results across from numpy.
 
 These take what the JAX package produces, as plain Python or numpy values
 (``dataclasses.asdict`` of a model or a distribution, ``np.asarray`` of
@@ -18,15 +18,25 @@ import numpy as np
 import torch
 
 from . import dists
+from .models.ep_classifier import EPClassifierPosterior
+from .models.glm import NIGPosterior, PoissonPosterior
 from .models.gmm import GMMPosterior
 from .models.gmm_full import GMMFullPosterior
 from .models.hgf import HGF, HGFState
 from .models.hgf_binary import BinaryHGF, BinaryHGFState
 from .models.hmm import HMM, HMMVMPState
 from .models.lgssm import LGSSM
+from .models.gp import GP, GPPosterior
+from .models.gp_ssm import GPSSMPosterior
+from .models.gpc import GPClassifier, GPCPosterior
 from .models.mv_lgssm import MvLGSSM
+from .models.nlssm import NonlinearSSM
+from .models.ppca import FAResult, PPCAResult
+from .models.sgp import SGPR, SGPRPosterior
 from .models.slds import SLDS
 from .ops.chains_mv import MvSmootherOperator
+from .ops.cvi import CVIResult
+from .ops.ep import EPResult
 from .ops.kernels_hgf import PARAMS as HGF_PARAMS
 
 __all__ = [
@@ -34,6 +44,8 @@ __all__ = [
     "binary_hgf_state_from_numpy",
     "dist_from_numpy",
     "dists_from_numpy",
+    "fitted_from_numpy",
+    "gp_posterior_from_numpy",
     "gmm_full_posterior_from_numpy",
     "gmm_posterior_from_numpy",
     "hgf_from_numpy",
@@ -43,6 +55,7 @@ __all__ = [
     "lgssm_from_numpy",
     "mv_lgssm_from_numpy",
     "mv_operator_from_numpy",
+    "nlssm_from_numpy",
     "operator_from_numpy",
     "prior_from_numpy",
     "slds_from_numpy",
@@ -228,3 +241,59 @@ def dists_from_numpy(values: Sequence[Any], device="cuda") -> List[Any]:
         else:
             out.append(torch.tensor(np.asarray(v), device=device))
     return out
+
+
+# The fitted results carried across field by field; an ``ep`` field is an
+# EPResult, a ``likelihood`` a string.
+FITTED = (NIGPosterior, PoissonPosterior, EPResult, CVIResult, EPClassifierPosterior,
+          PPCAResult, FAResult, GPSSMPosterior)
+
+
+def fitted_from_numpy(cls, values: Sequence[Any], device="cuda"):
+    """A fitted result of class ``cls`` (one of :data:`FITTED`; the AR
+    posterior is ``NIGPosterior``) from its fields in order (for example the
+    JAX result itself), arrays as tensors on ``device`` in their own dtype.
+    Another class or another number of fields raises."""
+    if cls not in FITTED:
+        raise ValueError(f"not a fitted result of the port: {cls!r}")
+    values = list(values)
+    if len(values) != len(cls._fields):
+        raise ValueError(f"{cls.__name__} has {len(cls._fields)} fields, got {len(values)}")
+    fields = []
+    for name, v in zip(cls._fields, values):
+        if name == "ep":
+            v = fitted_from_numpy(EPResult, v, device=device)
+        elif name != "likelihood":
+            v = torch.tensor(np.asarray(v), device=device)
+        fields.append(v)
+    return cls(*fields)
+
+
+_POSTERIORS = {GPPosterior: GP, SGPRPosterior: SGPR, GPCPosterior: GPClassifier}
+
+
+def gp_posterior_from_numpy(cls, params: Mapping[str, object], arrays: Mapping[str, object],
+                            device="cuda"):
+    """A GP posterior of class ``cls`` (``GPPosterior``, ``SGPRPosterior`` or
+    ``GPCPosterior``) rebuilt with its ``predict`` from the model's
+    parameters (for example ``dataclasses.asdict`` of the JAX model) and the
+    arrays its prediction closes over, named as the arguments of the port
+    model's ``posterior`` method (``GP``: ``X, alpha, L, lml``; ``SGPR``:
+    ``Z, L, LB, c, elbo``; ``GPClassifier``: ``X, tau, nu, latent_mean, L,
+    alpha, delta``), as tensors on ``device`` in their own dtype."""
+    if cls not in _POSTERIORS:
+        raise ValueError(f"not a GP posterior of the port: {cls!r}")
+    model = _POSTERIORS[cls](**params)
+    return model.posterior(**{k: torch.tensor(np.asarray(v), device=device)
+                              for k, v in arrays.items()})
+
+
+def nlssm_from_numpy(params: Mapping[str, object], f, h, device="cuda") -> NonlinearSSM:
+    """The port's :class:`NonlinearSSM` from its arrays ``{"Q", "R", "m0",
+    "P0"}`` (for example from ``dataclasses.asdict`` of the JAX model, less
+    its callables) on ``device`` in their own dtype, with the torch
+    callables ``f`` and ``h``.  Other or missing keys raise."""
+    if set(params) != {"Q", "R", "m0", "P0"}:
+        raise ValueError(f"NonlinearSSM takes the arrays Q, R, m0, P0; got {sorted(params)}")
+    return NonlinearSSM(f, h, **{k: torch.tensor(np.asarray(v), device=device)
+                                 for k, v in params.items()})

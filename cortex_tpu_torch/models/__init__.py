@@ -1,5 +1,15 @@
 """Model families of the port, in PyTorch."""
 
+from .ar import ARPosterior, BayesianAR, companion_matrix, latent_ar_smooth
+from .bocpd import BOCPD, BOCPDResult, BernoulliBeta, GaussianNIG
+from .ep_classifier import EPClassifier, EPClassifierPosterior
+from .glm import (
+    BayesianLinearRegression,
+    NIGPosterior,
+    PoissonPosterior,
+    PoissonRegression,
+    nig_fit,
+)
 from . import fit
 from .fit import (
     LGSSMParams,
@@ -10,6 +20,9 @@ from .fit import (
     fit_mv_lgssm_ml,
 )
 from .gmm import GMM, GMMPosterior, GMMResult
+from .gp import GP, GPPosterior, fit_gp_ml
+from .gp_ssm import GPSSM, GPSSMPosterior, fit_gpssm_ml, matern_state_space
+from .gpc import GPClassifier, GPCPosterior
 from .gmm_full import GMMFull, GMMFullPosterior, GMMFullResult
 from .hgf import HGF, HGFState, HGFTrajectory
 from .hgf_binary import BinaryHGF, BinaryHGFState, BinaryHGFTrajectory
@@ -17,8 +30,11 @@ from .hmm import HMM, HMMVMPResult, HMMVMPState
 from .lgssm import LGSSM
 from .lgssm_graph import LGSSMChainBatched, LGSSMChainDynamic, ScalarNormal, make_chain_graph
 from .mv_lgssm import MvLGSSM
+from .nlssm import NLSSMBeliefs, NonlinearSSM
 from .particle import ParticleFilterResult, particle_filter, systematic_resample
+from .ppca import FactorAnalysis, FAResult, PPCA, PPCAResult, ppca_closed_form
 from .rbpf import RBPFResult, rbpf_filter
+from .sgp import SGPR, SGPRPosterior, fit_sgpr_ml
 from .slds import SLDS, SLDSBeliefs
 from .structured_graph import StructuredSSMBatched, make_structured_ssm_graph
 from .vmp_graph import MeanFieldSSMBatched, make_mean_field_ssm_graph
@@ -63,4 +79,38 @@ __all__ = [
     "make_mean_field_ssm_graph",
     "StructuredSSMBatched",
     "make_structured_ssm_graph",
+    "BOCPD",
+    "BOCPDResult",
+    "GaussianNIG",
+    "BernoulliBeta",
+    "PPCA",
+    "PPCAResult",
+    "FactorAnalysis",
+    "FAResult",
+    "ppca_closed_form",
+    "GPSSM",
+    "GPSSMPosterior",
+    "fit_gpssm_ml",
+    "matern_state_space",
+    "NonlinearSSM",
+    "NLSSMBeliefs",
+    "GP",
+    "GPPosterior",
+    "fit_gp_ml",
+    "SGPR",
+    "SGPRPosterior",
+    "fit_sgpr_ml",
+    "BayesianAR",
+    "ARPosterior",
+    "companion_matrix",
+    "latent_ar_smooth",
+    "EPClassifier",
+    "EPClassifierPosterior",
+    "BayesianLinearRegression",
+    "NIGPosterior",
+    "nig_fit",
+    "PoissonRegression",
+    "PoissonPosterior",
+    "GPClassifier",
+    "GPCPosterior",
 ]

@@ -18,7 +18,10 @@ version does: 1e-5 (tests/test_hgf.py's bar), bf16 tracks within one ulp.
 The generic compiled path runs plain torch operations on the card; the BP
 chain and the mean-field VMP graph are held against the same calls on the
 CPU at 1e-5 and rtol 1e-4 (atol 1e-6).  So do the Gaussian mixtures and the
-vector chains, held against the CPU at 1e-4.
+vector chains, held against the CPU at 1e-4, and the rest of the zoo
+(chip_smoke's zoo calls at a small size), against the CPU at chip_smoke's
+ZOO_TOL["cpu"] (atol 1e-4, rtol 1e-3); HMC draws from the card's generator,
+so it is held to its target's moments instead.
 """
 
 import importlib.util
@@ -427,7 +430,7 @@ def test_parallel_worlds_on_card_match_the_single_device_path(cuda, tmp_path, ba
     time-sharded and pipelined smoothers, the vector chains, the sharded HGF
     with K4 — to the single-device path on the card and to float64 numpy."""
     shapes = {"replica": [300, 40], "time": [64, 128, 2], "mv": [2, 32, 20],
-              "hgf": [300, 64, 16]}
+              "hgf": [300, 64, 16], "gabp": [8, 8, 8, 60], "hmc": [8, 3, 100, 100, 8]}
     ranks = _chip_smoke().run_parallel_ranks(
         "parallel_main_path_rank", world, tmp_path, device="cuda", backend=backend,
         timeout=240.0, shapes=shapes, n_ref=16, timed=False)
@@ -436,3 +439,74 @@ def test_parallel_worlds_on_card_match_the_single_device_path(cuda, tmp_path, ba
         assert r["launches"]["lgssm_smooth"] == 1 and r["launches"]["hgf_filter"] == 2
         assert {"replica-sharded lgssm_smooth_fused", "time-sharded, no prior",
                 "time-sharded, prior"} <= {c["path"] for c in r["checks"]}
+
+
+ZOO_SMALL = {"nlssm": (16, 20), "gabp": (4, 8, 8, 60), "hmc": (64, 4, 100, 100, 8),
+             "glm": (2000, 8), "ar": (32, 200, 4), "latent_ar": (16, 30), "gp": 300,
+             "sgpr": (2000, 32), "gpc": 200, "gpssm": (300, 600), "ppca": (2000, 16, 3, 30),
+             "bocpd": (8, 200, 64)}
+ZOO_PATHS = ["NonlinearSSM.filter ekf", "NonlinearSSM.smooth ukf", "gabp_grid_solve",
+             "gabp_solve", "BayesianLinearRegression.fit", "EPClassifier probit", "cvi logistic",
+             "PoissonRegression.fit", "BayesianAR.fit", "latent_ar_smooth", "GP.fit + predict",
+             "SGPR.fit + predict", "GPClassifier.fit", "GPSSM matern32", "ppca_closed_form",
+             "PPCA.fit_em", "FactorAnalysis.fit_em", "BOCPD GaussianNIG", "BOCPD BernoulliBeta"]
+
+
+def _float_leaves(tree):
+    """The float tensors of a result, less an EP result's site parameters
+    (a difference of precisions, ``1/v - tau_cav``: chip_smoke holds the
+    posterior they give, not the sites), loadings ``W`` as ``W Wᵀ`` (their
+    columns' signs differ between the libraries' factorizations)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree] if tree.is_floating_point() else []
+    if isinstance(tree, tuple):
+        fields = getattr(tree, "_fields", [None] * len(tree))
+        return [leaf for name, item in zip(fields, tree) if name != "ep"
+                for leaf in _float_leaves(item @ item.mT if name == "W" else item)]
+    return []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ZOO_PATHS)
+def test_zoo_models_on_card_match_the_cpu(cuda, path):
+    smoke = _chip_smoke()
+    data = smoke.zoo_data(ZOO_SMALL)
+    got = smoke.zoo_calls(torch, models, ops, "cuda", data, ZOO_SMALL)[path]()
+    want = smoke.zoo_calls(torch, models, ops, "cpu", data, ZOO_SMALL)[path]()
+    atol, rtol = smoke.ZOO_TOL["cpu"]
+    for g, w in zip(_float_leaves(got), _float_leaves(want)):
+        assert g.is_cuda
+        torch.testing.assert_close(g.cpu(), w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_gabp_and_hmc_on_card_launch_none_of_the_kernels(cuda):
+    smoke = _chip_smoke()
+    before = dict(kernels.LAUNCHES)
+    eta = torch.randn(3, 8, 8, device=cuda)
+    grid = ops.gabp_grid_solve(torch.full((8, 8), 4.0, device=cuda), eta, -0.8, n_iters=60)
+    edges = ops.grid_edges(8, 8)
+    flat = ops.gabp_solve(torch.full((64,), 4.0, device=cuda), eta.reshape(3, 64), edges,
+                          torch.full((len(edges),), -0.8, device=cuda), n_iters=60)
+    torch.testing.assert_close(grid.mean.reshape(3, 64), flat.mean, rtol=2e-4, atol=2e-5)
+    mu, cov = smoke.hmc_target(4)
+    prec = torch.tensor(np.linalg.inv(cov), dtype=torch.float32, device=cuda)
+    mu = torch.tensor(mu, dtype=torch.float32, device=cuda)
+    res = ops.hmc_sample(torch.Generator(device=cuda).manual_seed(0),
+                         lambda x: -0.5 * (x - mu) @ (prec @ (x - mu)),
+                         torch.zeros(64, 4, device=cuda), n_samples=100, n_warmup=100,
+                         n_leapfrog=8, n_chains=64)
+    assert res.samples.is_cuda and res.samples.shape == (64, 100, 4)
+    smoke.check_hmc(res.samples, res.accept_rate, res.step_size, 4, "HMC on the card")
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_chip_smoke_zoo_main_path_on_card(cuda):
+    smoke = _chip_smoke()
+    before = dict(kernels.LAUNCHES)
+    refs = {"nlssm": 8, "nlssm_cpu": 16, "gabp": 4, "ar": 16, "latent_ar": 8, "cpu_n": 500,
+            "gpc_cpu": 100, "bocpd": 4, "bocpd_cpu": 8, "gpssm_stride": 4}
+    checks = smoke.run_zoo_main_path(torch, models, ops, "cuda", shapes=ZOO_SMALL, refs=refs)
+    assert len(checks) > 60
+    assert kernels.LAUNCHES == before  # the zoo runs none of K1-K4

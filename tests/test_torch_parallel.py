@@ -339,7 +339,8 @@ def test_pipelined_smoothing_input_validation(world):
 
 # -- chip_smoke's parallel main path --------------------------------------------------------------
 
-SMALL = {"replica": [64, 20], "time": [16, 64, 2], "mv": [2, 12, 20], "hgf": [64, 48, 16]}
+SMALL = {"replica": [64, 20], "time": [16, 64, 2], "mv": [2, 12, 20], "hgf": [64, 48, 16],
+         "gabp": [8, 8, 8, 60], "hmc": [8, 3, 40, 60, 8]}
 
 
 def test_chip_smoke_parallel_main_path_rehearses_on_cpu(tmp_path):
@@ -352,7 +353,8 @@ def test_chip_smoke_parallel_main_path_rehearses_on_cpu(tmp_path):
     paths = {c["path"] for c in ranks[0]["checks"]}
     assert {"replica-sharded lgssm_smooth_fused", "all_converged", "pipelined",
             "time-sharded, prior", "vector time-sharded",
-            "replica-sharded HGF streaming"} <= paths
+            "replica-sharded HGF streaming", "replica-sharded gabp_grid_solve",
+            "chain-sharded HMC"} <= paths
     assert [r["rank"] for r in ranks] == list(range(WORLD))
     assert all(r["backend"] == "gloo" and not any(r["launches"].values()) for r in ranks)
 
