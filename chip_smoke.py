@@ -1,7 +1,8 @@
 """Drive the PyTorch port's main paths once on an NVIDIA GPU: LGSSM, HMM, HGF,
 the generic compiled path, the Gaussian mixtures, the vector chains, the
-parallel layer, the switching and particle state-space models, and the rest
-of the model zoo.
+parallel layer, the switching and particle state-space models, the rest
+of the model zoo, and serving (CUDA graphs, exported programs, checkpoints,
+diagnostics, the native signal core).
 
 Run from the root of a checkout, with one CUDA card::
 
@@ -113,6 +114,25 @@ single-device runs.  Phases, each printing JSON lines:
 21. ``zoo_times``: each zoo path's call time (CUDA events), device time,
     kernels and host share from one profiled call, and its top kernels;
     GPSSM also at T=10,000 (call time only).
+22. ``serve_main_path``: ``serve.BucketedServer`` over ``lgssm_smooth_fused``
+    (K1) at T=100 with every bucket from 8 to 16,384 replicas captured into a
+    CUDA graph up front, and over ``HMM.smooth(method="fused")`` (K3) and
+    ``hmm_forward_backward_fused`` (K2) at ``ladder.hmm`` (buckets 8 to 4,096);
+    each request's answer equal to the eager call and within the float64 RTS
+    and forward-backward bars; one captured launch a bucket and the kernel's
+    name in a profiled replay (in a fresh process); ``export_serialized`` of K1's server function
+    at 10,000 x 100 (one kernel node) loaded in a fresh process that imports
+    only ``cortex_tpu_torch.ops``; two fresh processes sharing one
+    ``enable_persistent_cache`` directory (the first builds, the second
+    loads); the HGF stream at ``ladder.hgf`` checkpointed after 4 of its 8
+    chunks, restored and resumed bit for bit; ``ConvergenceMonitor`` over
+    ``GMM.fit`` at ``ladder.gmm`` and ``check_finite``; ``rhat`` and ``ess`` of
+    AR(1) draws on the card against float64 numpy.
+23. ``serve_times``: each bucket's replayed call against the eager call at
+    its size (call and device time, host share), the host time of a K1
+    replay's parts (check, copy in, replay, copies out), and the native
+    against the Python signal core's fan-out on the host (the native must
+    be faster).
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 A failed check raises: the exit code is non-zero and the last line is not
@@ -724,6 +744,29 @@ def median_ms(torch, fn, flush, runs: int = 25, warmup: int = 3) -> float:
     times = []
     for _ in range(runs):
         flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(torch, fn, flush, runs: int = 25, warmup: int = 3,
+              sleep_cycles: int = 2_000_000) -> float:
+    """Median device time of ``fn`` in ms, host time left out: each call is
+    enqueued behind the read of ``flush`` and a sleep of ``sleep_cycles`` on
+    the card (about 1 ms), so the host has enqueued the whole call before the
+    device reaches the events around it.  For calls too short for the
+    profiler to record reliably."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        flush.sum()
+        torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3623,6 +3666,526 @@ def phase_zoo_main_path(torch, models, ops, kernels, card: str) -> dict:
     return {"launches": launches, "times": result}
 
 
+# Phases 22-23: serving, checkpointing, diagnostics and the native signal core.
+# The servers: LGSSM through K1 (paths_10k's model, T=100) on every bucket
+# from 8 to 16,384 replicas, compiled up front; the HMM through K3
+# (HMM.smooth(method="fused")) and K2 at ladder.hmm (T=64, K=4, M=8) on buckets
+# 8 to 4,096, compiled as requests reach them.  Export: K1's server function at
+# 10,000 x 100.  Checkpoint/resume: the HGF stream at ladder.hgf.  Diag: GMM.fit
+# at ladder.gmm; R-hat and ESS of AR(1) draws, phi = 0.5, 64 chains x 2,000.
+SERVE_SHAPES = {
+    "lgssm": {"T": T_MAIN, "max_batch": 16_384, "min_bucket": 8,
+              "requests": (3, 1_000, 4_097, 10_000, 16_384), "precompile": True},
+    "hmm": {"T": HMM_T, "K": HMM_K, "M": HMM_M, "max_batch": 4_096, "min_bucket": 8,
+            "requests": (5, 700, 4_096)},
+    "export": (R_MAIN, T_MAIN),
+    "hgf": (HGF_R, HGF_T, HGF_CHUNK),
+    "gmm": (GMM_R, GMM_N),
+    "ar1": (64, 2_000, 0.5),
+    "fanout": 300,  # tests/test_native.py::test_native_perf_smoke's dense network
+}
+# Checkpoint after this many chunks of the HGF stream, kept by a manager of 2.
+SERVE_SAVE_AFTER, SERVE_KEEP = 4, 2
+# R-hat and ESS on the card (float64) against float64 numpy: rtol 1e-5, the
+# port's bar against JAX (tests/test_torch_diag.py); ESS of AR(1) within 0.5x
+# to 2x of M N (1 - phi) / (1 + phi), the bar of tests/test_diag_tracing.py.
+DIAG_RTOL, ESS_BAND = 1e-5, (0.5, 2.0)
+SERVE_PROCESS_TIMEOUT = 300  # seconds a fresh process of phase 22 may take
+
+
+def numpy_rhat(chains):
+    """Float64 split-R-hat over (M, N) draws, the formulas of diag.rhat."""
+    x = np.asarray(chains, dtype=np.float64)
+    half = x.shape[1] // 2
+    x = np.concatenate([x[:, :half], x[:, half:2 * half]], axis=0)
+    w = x.var(axis=1, ddof=1).mean(axis=0)
+    b = half * x.mean(axis=1).var(axis=0, ddof=1)
+    return np.sqrt((w * (half - 1) / half + b / half) / w)
+
+
+def numpy_ess(chains, max_lag: int = 200):
+    """Float64 ESS over (M, N) draws: the autocovariance summed lag by lag
+    (not by FFT), Geyer's pairs truncated at the first negative one."""
+    x = np.asarray(chains, dtype=np.float64)
+    m, n = x.shape
+    max_lag = min(max_lag, n - 1)
+    xc = x - x.mean(axis=1, keepdims=True)
+    acov = np.stack([(xc[:, : n - k] * xc[:, k:]).sum(axis=1) / n
+                     for k in range(max_lag + 1)], axis=1)
+    rhos = (acov[:, 1:] / np.maximum(acov[:, :1], 1e-30)).mean(axis=0)
+    n_pairs = max_lag // 2
+    pair = rhos[: 2 * n_pairs].reshape(n_pairs, 2).sum(axis=1)
+    keep = np.cumprod(pair > 0)
+    return m * n / max(1.0 + 2.0 * float((pair * keep).sum()), 1.0)
+
+
+def _fresh_process(script: str, workdir: Path) -> dict:
+    """Run ``script`` in a fresh Python process from the repository's root and
+    return the JSON object of its last line of output; raises SmokeFailure
+    with its log if it fails or outlives SERVE_PROCESS_TIMEOUT."""
+    log = workdir / "fresh.log"
+    with open(log, "w") as out:
+        try:
+            proc = subprocess.run([sys.executable, "-c", script], stdout=out,
+                                  stderr=subprocess.STDOUT, cwd=REPO,
+                                  timeout=SERVE_PROCESS_TIMEOUT)
+        except subprocess.TimeoutExpired as e:
+            raise SmokeFailure(f"a fresh process outlived {e.timeout} s:\n"
+                               f"{log.read_text()[-4000:]}") from e
+    text = log.read_text()
+    if proc.returncode != 0:
+        raise SmokeFailure(f"a fresh process exited with {proc.returncode}:\n{text[-4000:]}")
+    return json.loads(text.strip().splitlines()[-1])
+
+
+# A fresh process that imports the kernels' operators and nothing of the
+# models, loads a saved program and runs it on saved inputs.
+LOAD_PROGRAM = """
+import json, sys, time
+sys.path.insert(0, {repo!r})
+import torch
+import cortex_tpu_torch.ops  # registers the kernels' operators
+start = time.perf_counter()
+y = torch.load({inputs!r}).to({device!r})  # on the card, this starts CUDA
+inputs = time.perf_counter() - start
+start = time.perf_counter()
+module = torch.export.load({blob!r}).module()
+loaded = time.perf_counter() - start
+out = module(y)
+torch.save([o.cpu() for o in out], {outputs!r})
+print(json.dumps({{"inputs_s": inputs, "load_s": loaded, "modules": sorted(
+    m for m in sys.modules if m.startswith("cortex_tpu_torch"))}}))
+"""
+
+# A fresh process that points the build directory at a cache, then builds or
+# loads the kernels (on the card) and the native signal core from there.
+USE_CACHE = """
+import json, sys, time
+sys.path.insert(0, {repo!r})
+from cortex_tpu_torch import _build, serve
+from cortex_tpu_torch.native import bindings
+serve.enable_persistent_cache({cache!r})
+report = {{}}
+libraries = {{"native": (bindings.library_path, bindings.load_native_lib)}}
+if {device!r} == "cuda":
+    from cortex_tpu_torch.ops import kernels
+    libraries["kernels"] = (_build.library_path, kernels._library)
+for name, (where, load) in libraries.items():
+    path = where()
+    existed = path.exists()
+    start = time.perf_counter()
+    load()
+    report[name] = {{"seconds": time.perf_counter() - start, "found": existed,
+                    "path": str(path), "in_cache": path.parent == _build.BUILD_DIR}}
+print(json.dumps(report))
+"""
+
+
+def _exact(name: str, got, want) -> float:
+    """Require ``got`` to equal ``want`` (same shape, every value); return the
+    largest absolute difference, 0."""
+    err = check_close(name, got, want, 0.0, 0.0)
+    if err != 0.0:
+        raise SmokeFailure(f"{name}: differs by {err}")
+    return err
+
+
+def serve_servers(torch, models, ops, serve, device, shapes=SERVE_SHAPES, seed: int = 50):
+    """The servers of the serving phase, on ``device``: ``{name: (server,
+    eager fn, kernel, requests)}`` with the requests' inputs (float32 on
+    ``device``), and the HMM's numpy inputs for the float64 references."""
+    lg = shapes["lgssm"]
+    servers = {}
+    smooth = lambda y: ops.lgssm_smooth_fused(y)  # noqa: E731
+    servers["lgssm"] = (
+        serve.BucketedServer(smooth, (torch.zeros((8, lg["T"]), device=device),),
+                             max_batch=lg["max_batch"], min_bucket=lg["min_bucket"],
+                             precompile=lg["precompile"]),
+        smooth, "lgssm_smooth",
+        [torch.from_numpy(random_walk(n, lg["T"], seed=seed + n)).to(device)
+         for n in lg["requests"]])
+    hm = shapes["hmm"]
+    K, M = hm["K"], hm["M"]
+    rng = np.random.default_rng(seed)
+    A = rng.random((K, K)) + 0.2
+    A /= A.sum(axis=1, keepdims=True)
+    B = rng.random((K, M)) + 0.2
+    B /= B.sum(axis=1, keepdims=True)
+    log_A = torch.from_numpy(np.log(A).astype(np.float32)).to(device)
+    model = models.HMM(K, torch.log(torch.full((K,), 1.0 / K))).to(device)
+    lls = []
+    for n in hm["requests"]:
+        obs = np.abs(rng.normal(size=(n, hm["T"])).cumsum(axis=-1)).astype(np.int64) % M
+        lls.append(np.log(B).T[obs].astype(np.float32))  # (n, T, K)
+    hmm_smooth = lambda ll: model.smooth(ll, log_A, method="fused")  # noqa: E731
+    fb = lambda lik: ops.hmm_forward_backward_fused(  # noqa: E731
+        lik, torch.exp(log_A), torch.exp(model.log_pi))
+    example = torch.zeros((8, hm["T"], K), device=device)
+    for name, fn, kernel, inputs in (
+        ("hmm smooth", hmm_smooth, "hmm_fb_counts",
+         [torch.from_numpy(ll).to(device) for ll in lls]),
+        ("hmm fb", fb, "hmm_fb", [torch.from_numpy(np.exp(ll)).to(device) for ll in lls]),
+    ):
+        servers[name] = (serve.BucketedServer(fn, (example,), max_batch=hm["max_batch"],
+                                              min_bucket=hm["min_bucket"]), fn, kernel, inputs)
+    refs = {"log_A": np.log(A), "log_pi": np.log(np.full(K, 1.0 / K)), "lls": lls}
+    return servers, refs
+
+
+def run_servers(torch, models, ops, serve, device, shapes=SERVE_SHAPES,
+                n_ref: int = N_RTS) -> dict:
+    """Drive the servers of :func:`serve_servers` once on ``device`` and check
+    them: each request's answer equal to the eager call on the unpadded
+    request and within the float64 bars (the RTS at 2e-4; the
+    forward-backward at the HMM main path's gamma 1e-4 and log-evidence rtol
+    1e-4) on the first ``n_ref`` replicas; on the card one launch of the
+    kernel captured into every bucket's graph (its name in a profiled replay
+    is :func:`run_replay_profile`'s).  Returns ``{"checks", "captured",
+    "servers"}``."""
+    servers, refs = serve_servers(torch, models, ops, serve, device, shapes)
+    checks, captured = [], {}
+    for name, (server, eager, kernel, inputs) in servers.items():
+        for i, x in enumerate(inputs):
+            n = x.shape[0]
+            got, want = server(x), eager(x)
+            diffs = {field: _exact(f"{name} {n} {field}", g, w)
+                     for field, g, w in zip(got._fields, got, want)}
+            rows = min(n, n_ref)
+            if name == "lgssm":
+                sm, sv = numpy_rts(x[:rows].cpu().numpy())
+                ref = {"mean": check_close(f"{name} {n} mean", got.mean[:rows], sm, 2e-4),
+                       "variance": check_close(f"{name} {n} variance", got.variance[:rows],
+                                               sv, 2e-4)}
+            else:
+                gamma_ref, log_z = numpy_hmm_smoother(refs["lls"][i][:rows], refs["log_A"],
+                                                      refs["log_pi"])
+                gamma = (torch.exp(got.log_gamma) if name == "hmm smooth" else got.gamma)[:rows]
+                ref = {"gamma": check_close(f"{name} {n} gamma", gamma, gamma_ref, 1e-4, 0.0),
+                       "log_evidence": check_close(f"{name} {n} log_evidence",
+                                                   got.log_evidence[:rows], log_z, 0.0, 1e-4)}
+            checks.append({"server": name, "request": n, "bucket": serve._bucket_for(
+                n, server.buckets), "max_abs_diff_vs_eager": diffs,
+                "max_abs_err_vs_float64": ref, "replicas_vs_float64": rows})
+        captured[name] = {b: server.compiled(b).captured_launches.get(kernel, 0)
+                          for b in server.compiled_buckets}
+        if device != "cpu":
+            wrong = {b: c for b, c in captured[name].items() if c != 1}
+            if wrong:
+                raise SmokeFailure(f"{name}: {kernel} captured {wrong} times, not once a bucket")
+            checks.append({"server": name, "kernel": kernel, "captured_per_bucket": captured[name]})
+    return {"checks": checks, "captured": captured, "servers": servers}
+
+
+# A fresh process that captures each server's top bucket as serve_servers
+# builds it and names the device kernels of one profiled replay.  In the
+# process that ran the earlier phases, whose profiles hold tens of thousands of
+# kernels, torch.profiler has come back with no device record at all, three
+# profiles running; a fresh process's first profile (after one to wake CUPTI)
+# records them.
+PROFILE_REPLAY = """
+import json, sys
+sys.path.insert(0, {repo!r})
+import torch
+import chip_smoke as smoke
+from cortex_tpu_torch import models, ops, serve
+shapes = dict(smoke.SERVE_SHAPES, lgssm=dict(smoke.SERVE_SHAPES["lgssm"], precompile=False))
+servers, _ = smoke.serve_servers(torch, models, ops, serve, "cuda", shapes)
+smoke._profile_once(torch, lambda: torch.ones(1, device="cuda").add_(1))
+report = {{}}
+for name, (server, _, kernel, inputs) in servers.items():
+    b = server.buckets[-1]
+    x = server._pad((inputs[-1],), b)[0]
+    compiled = server.compiled(b)
+    compiled(x)
+    for attempt in range(3):  # a profile now and then holds no kernel record
+        names = [n for n, _, _ in smoke._profile_once(torch, lambda: compiled(x))["top"]]
+        if names:
+            break
+    report[name] = {{"kernel": kernel, "bucket": b, "profiles": attempt + 1, "names": names,
+                    "captured": compiled.captured_launches.get(kernel, 0)}}
+print(json.dumps(report))
+"""
+
+
+def run_replay_profile(workdir) -> list:
+    """Each server's top bucket captured and replayed once under
+    torch.profiler in a fresh process (PROFILE_REPLAY): the replay must run
+    the server's kernel, by name.  Returns the checks."""
+    report = _fresh_process(PROFILE_REPLAY.format(repo=REPO), Path(workdir))
+    checks = []
+    for name, run in report.items():
+        wanted = DEVICE_KERNELS["kernel" if run["kernel"] == "lgssm_smooth" else run["kernel"]]
+        # A replay runs a copy in, the graph's kernels and the clones: the
+        # five longest name them all.
+        ran = sorted(n[:60] for n in run["names"] if any(w in n for w in wanted))
+        if run["captured"] != 1 or not ran:
+            raise SmokeFailure(f"{name}: a replay of bucket {run['bucket']} ran no {wanted} "
+                               f"(captured {run['captured']}): {run['names']}")
+        checks.append({"server": name, "kernel": run["kernel"], "replay_bucket": run["bucket"],
+                       "replay_ran": ran, "profiles": run["profiles"],
+                       "profiled_in": "a fresh process"})
+    return checks
+
+
+def run_export(torch, ops, serve, device, workdir, shape=SERVE_SHAPES["export"]) -> dict:
+    """Export K1's server function (a plain tuple out) at ``shape`` on
+    ``device``: one kernel node; loaded in a fresh process that imports only
+    ``cortex_tpu_torch.ops``, its answer equals the eager call.  Returns the
+    check."""
+    import io
+
+    workdir = Path(workdir)
+    R, T = shape
+    y = torch.from_numpy(random_walk(R, T, seed=R)).to(device)
+    fn = lambda y: tuple(ops.lgssm_smooth_fused(y))  # noqa: E731
+    start = time.perf_counter()
+    blob = serve.export_serialized(fn, y)
+    export_s = time.perf_counter() - start
+    program = torch.export.load(io.BytesIO(blob))
+    nodes = [n for n in program.graph.nodes if n.op == "call_function"
+             and getattr(n.target, "namespace", None) == ops.kernels.NAMESPACE]
+    if len(nodes) != 1:
+        raise SmokeFailure(f"the exported K1 function holds {len(nodes)} kernel nodes, not 1")
+    (workdir / "k1.pt2").write_bytes(blob)
+    torch.save(y.cpu(), workdir / "y.pt")
+    loaded = _fresh_process(LOAD_PROGRAM.format(
+        repo=REPO, blob=str(workdir / "k1.pt2"), inputs=str(workdir / "y.pt"), device=device,
+        outputs=str(workdir / "out.pt")), workdir)
+    if any(m.startswith(("cortex_tpu_torch.models", "cortex_tpu_torch.serve"))
+           for m in loaded["modules"]):
+        raise SmokeFailure(f"loading the program imported model code: {loaded['modules']}")
+    mean, var = torch.load(workdir / "out.pt")
+    eager = ops.lgssm_smooth_fused(y)
+    return {"export": [R, T], "blob_bytes": len(blob), "kernel_nodes": len(nodes),
+            "export_s": export_s, "fresh_inputs_s": loaded["inputs_s"],
+            "fresh_load_s": loaded["load_s"],
+            "fresh_modules": len(loaded["modules"]),
+            "max_abs_diff_vs_eager": {"mean": _exact("loaded mean", mean, eager.mean),
+                                      "variance": _exact("loaded variance", var,
+                                                         eager.variance)}}
+
+
+def run_persistent_cache(device, workdir) -> dict:
+    """Two fresh processes share one ``enable_persistent_cache`` directory
+    under ``workdir``: the first builds the native signal core (and on the
+    card the kernels) there, the second finds and loads them.  Returns the
+    check with both processes' seconds."""
+    workdir = Path(workdir)
+    cache = workdir / "cache"
+    runs = [_fresh_process(USE_CACHE.format(repo=REPO, cache=str(cache), device=device), workdir)
+            for _ in range(2)]
+    for lib in runs[0]:
+        if runs[0][lib]["found"] or not runs[1][lib]["found"] or not runs[1][lib]["in_cache"]:
+            raise SmokeFailure(f"the cache did not carry {lib} to the second process: {runs}")
+    return {"persistent_cache": {lib: {"first_s": runs[0][lib]["seconds"],
+                                       "second_s": runs[1][lib]["seconds"],
+                                       "second_found_it_built": runs[1][lib]["found"]}
+                                 for lib in runs[0]}}
+
+
+def run_resume_and_diag(torch, models, device, workdir, shapes=SERVE_SHAPES, seed: int = 60,
+                        n_ref: int = N_GMM) -> list:
+    """Checkpoint/resume and diagnostics on ``device``: the HGF streamed by
+    chunks, checkpointed by a manager of SERVE_KEEP after each of the first
+    SERVE_SAVE_AFTER chunks, restored into a fresh state and run to the end,
+    whose finals must equal the uninterrupted stream's bit for bit; GMM.fit's
+    free energies through ConvergenceMonitor (no replica diverges) and
+    check_finite on its result; rhat and ess of AR(1) draws made on
+    ``device`` against float64 numpy (DIAG_RTOL) and ESS against its value
+    for AR(1) (ESS_BAND).  Returns the checks."""
+    from cortex_tpu_torch import checkpoint, diag
+
+    checks = []
+    R, T, chunk = shapes["hgf"]
+    model = models.HGF()
+    u = torch.from_numpy(hgf_data(R, T, "walk", seed)).to(device)
+    pieces = u.split(chunk, dim=1)
+
+    def stream(state, parts):
+        for part in parts:
+            state, _ = model.filter(part, state=state, tracks=())
+        return state
+
+    whole = stream(model.init_state((R,), device=device), pieces)
+    manager = checkpoint.CheckpointManager(str(Path(workdir) / "ckpt"), max_to_keep=SERVE_KEEP)
+    state = model.init_state((R,), device=device)
+    save_ms = []
+    for k in range(SERVE_SAVE_AFTER):
+        state = stream(state, pieces[k:k + 1])
+        start = time.perf_counter()
+        path = manager.save(k + 1, state)
+        save_ms.append((time.perf_counter() - start) * 1e3)
+    kept = sorted(os.listdir(manager.directory))
+    want_kept = [f"ckpt_{k}.npz" for k in range(SERVE_SAVE_AFTER - SERVE_KEEP + 1,
+                                                SERVE_SAVE_AFTER + 1)]
+    if kept != want_kept:
+        raise SmokeFailure(f"the manager kept {kept}, not {want_kept}")
+    start = time.perf_counter()
+    restored = manager.restore(model.init_state((R,), device=device))
+    restore_ms = (time.perf_counter() - start) * 1e3
+    if type(restored) is not type(whole):
+        raise SmokeFailure(f"restored a {type(restored).__name__}, not a {type(whole).__name__}")
+    resumed = stream(restored, pieces[SERVE_SAVE_AFTER:])
+    diffs = {field: _exact(f"resumed {field}", g, w)
+             for field, g, w in zip(whole._fields, resumed, whole)}
+    checks.append({"path": "HGF stream resumed from a checkpoint", "R": R, "T": T,
+                   "chunks": len(pieces), "saved_after": SERVE_SAVE_AFTER, "kept": kept,
+                   "file_bytes": os.path.getsize(path), "save_ms": save_ms,
+                   "restore_ms": restore_ms, "max_abs_diff_vs_uninterrupted": diffs})
+
+    R, N = shapes["gmm"]
+    x = torch.from_numpy(gmm_data(R, N, GMM_D, GMM_K, seed)).to(device)
+    fit = models.GMM(K=GMM_K).fit(x, n_iterations=GMM_ITERS, init_means=x[:, :GMM_K])
+    monitor = diag.ConvergenceMonitor(rtol=GMM_MONOTONE_RTOL)
+    for it in range(fit.free_energy.shape[-1]):
+        monitor.update(fit.free_energy[..., it])
+    monitor.raise_if_diverged("GMM.fit")
+    diag.check_finite(fit, where="GMM.fit")
+    checks.append({"path": "ConvergenceMonitor over GMM.fit", "R": R, "N": N,
+                   "iterations": len(monitor.history), "diverged": int(monitor.diverged.sum()),
+                   "check_finite": "passed"})
+
+    m, n, phi = shapes["ar1"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    eps = torch.randn((n, m), generator=gen, device=device, dtype=torch.float64)
+    z = torch.empty_like(eps)
+    z[0] = eps[0]
+    for t in range(1, n):
+        z[t] = phi * z[t - 1] + eps[t]
+    draws = z.t().contiguous()
+    got_rhat, got_ess = float(diag.rhat(draws)), float(diag.ess(draws))
+    host = draws.cpu().numpy()
+    want_rhat, want_ess = float(numpy_rhat(host)), float(numpy_ess(host))
+    expected = m * n * (1 - phi) / (1 + phi)
+    for name, got, want in (("rhat", got_rhat, want_rhat), ("ess", got_ess, want_ess)):
+        if not abs(got - want) <= DIAG_RTOL * abs(want):
+            raise SmokeFailure(f"{name}: {got} against float64 numpy's {want}")
+    if not ESS_BAND[0] * expected < got_ess < ESS_BAND[1] * expected:
+        raise SmokeFailure(f"ess {got_ess} outside {ESS_BAND} x {expected}")
+    checks.append({"path": "rhat, ess of AR(1)", "chains": m, "draws": n, "phi": phi,
+                   "rhat": got_rhat, "ess": got_ess, "ess_expected": expected,
+                   "rel_err_rhat": abs(got_rhat - want_rhat) / abs(want_rhat),
+                   "rel_err_ess": abs(got_ess - want_ess) / abs(want_ess), "rtol": DIAG_RTOL})
+    return checks
+
+
+def native_fanout(n: int = SERVE_SHAPES["fanout"]) -> dict:
+    """Seconds of one fan-out on a dense network of n sources and n sinks
+    (every sink on every source), native and Python signal cores:
+    tests/test_native.py::test_native_perf_smoke's network."""
+    from cortex_tpu_torch.core import Signal
+    from cortex_tpu_torch.native import NativeSignalEngine
+
+    def build(create):
+        sources = [create() for _ in range(n)]
+        sinks = [create() for _ in range(n)]
+        for snk in sinks:
+            for src in sources:
+                snk.add_dependency(src)
+        return sources, sinks
+
+    def drive(sources, sinks):
+        start = time.perf_counter()
+        for s in sources:
+            s.set_value(1)
+        hits = sum(1 for s in sinks if s.is_pending())
+        return time.perf_counter() - start, hits
+
+    engine = NativeSignalEngine()
+    t_native, hits_native = drive(*build(engine.create_signal))
+    t_python, hits_python = drive(*build(Signal))
+    if not hits_native == hits_python == n:
+        raise SmokeFailure(f"fan-out reached {hits_native} / {hits_python} sinks, not {n}")
+    return {"native_s": t_native, "python_s": t_python, "sinks": n}
+
+
+def phase_serve_main_path(torch, models, ops, kernels, card: str) -> dict:
+    """Phase 22: the serving path, checkpoint/resume and diagnostics on the
+    card; K1-K4's launches over the serving run; returns {"launches",
+    "captured", "servers"}."""
+    from cortex_tpu_torch import serve
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="serve_") as workdir:
+        _kernel_launches_zero(kernels)
+        run = run_servers(torch, models, ops, serve, "cuda")
+        launches = dict(kernels.LAUNCHES)
+        for check in (run["checks"] + run_replay_profile(workdir)
+                      + [run_export(torch, ops, serve, "cuda", workdir),
+                         run_persistent_cache("cuda", workdir)]):
+            emit(phase="serve_main_path", **check)
+        emit(phase="serve_main_path", launches=launches,
+             note="each graph counts its kernel once, at capture; warm-ups and the eager "
+                  "comparisons count too")
+        for check in run_resume_and_diag(torch, models, "cuda", workdir):
+            emit(phase="serve_main_path", **check)
+    emit(phase="serve_main_path", seconds=time.perf_counter() - start, card=card)
+    return {"launches": launches, "captured": run["captured"], "servers": run["servers"]}
+
+
+def replay_parts_us(torch, compiled, x, runs: int = 100) -> dict:
+    """Host µs (median of ``runs``, each after a synchronize) of a compiled
+    call on ``x`` and of its parts: the argument check, the copy into the
+    graph's input buffer, the replay's launch and the copies of the
+    outputs."""
+    from cortex_tpu_torch.utils.tree import tree_map
+
+    parts = {"call": lambda: compiled(x), "check": lambda: compiled._check((x,)),
+             "copy_in": lambda: compiled._inputs[0].copy_(x),
+             "replay": compiled._graph.replay,
+             "copy_out": lambda: tree_map(torch.clone, compiled._outputs)}
+    result = {}
+    for name, fn in parts.items():
+        for _ in range(10):
+            fn()
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - start) * 1e6)
+        result[name] = statistics.median(times)
+    torch.cuda.synchronize()
+    return result
+
+
+def phase_serve_times(torch, servers: dict, card: str) -> dict:
+    """Phase 23: each compiled bucket's call (copy in, replay, copy out)
+    against the eager call at the same size (CUDA events, the median of 25
+    calls after a read that evicts L2), each with its device time (the same
+    events with the call queued behind a sleep on the card: queued_ms) and
+    the host's share; for K1's buckets, the host time of a replayed call's
+    parts (replay_parts_us); the native and Python signal cores' fan-out on
+    the host.
+    Returns {server: {bucket: {...}}}."""
+    start = time.perf_counter()
+    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
+    result = {}
+    for name, (server, eager, _, inputs) in servers.items():
+        result[name] = {}
+        for b in server.compiled_buckets:
+            x = server._pad((inputs[-1],), b)[0]
+            compiled = server.compiled(b)
+            row = {}
+            for path, fn in (("replay", lambda: compiled(x)), ("eager", lambda: eager(x))):
+                ms = median_ms(torch, fn, flush)
+                device = queued_ms(torch, fn, flush)
+                row[path] = {"ms": ms, "device_ms": device, "host_share": 1.0 - device / ms}
+            if name == "lgssm":
+                row["replay_host_us"] = replay_parts_us(torch, compiled, x)
+            result[name][b] = row
+            emit(phase="serve_times", server=name, bucket=b, **row,
+                 eager_over_replay=row["eager"]["ms"] / row["replay"]["ms"], card=card)
+    fanout = native_fanout()
+    if not fanout["native_s"] < fanout["python_s"]:
+        raise SmokeFailure(f"the native fan-out was not faster than Python's: {fanout}")
+    emit(phase="serve_times", path="signal fan-out on the host", **fanout,
+         python_over_native=fanout["python_s"] / fanout["native_s"])
+    emit(phase="serve_times", seconds=time.perf_counter() - start, card=card)
+    return result
+
+
 def main() -> None:
     import torch
 
@@ -3650,9 +4213,16 @@ def main() -> None:
     worlds = phase_parallel_main_path(torch, device["nvidia_smi"])
     phase_ssm_main_path(torch, models, kernels, device["nvidia_smi"])
     phase_zoo_main_path(torch, models, ops, kernels, device["nvidia_smi"])
-    # Each kernel's launches over every run of a main path that launches it.
+    serving = phase_serve_main_path(torch, models, ops, kernels, device["nvidia_smi"])
+    phase_serve_times(torch, serving["servers"], device["nvidia_smi"])
+    # Each kernel's launches over every run of a main path that launches it;
+    # on the serving path, those captured into its graphs (one a bucket, each
+    # replayed per request).
+    captured = {kernel: sum(serving["captured"][name].values())
+                for name, (_, _, kernel, _) in serving["servers"].items()}
     by_phase = {name: {"main path": count, **{
-        f"parallel_main_path {world}": run["launches"][name] for world, run in worlds.items()}}
+        f"parallel_main_path {world}": run["launches"][name] for world, run in worlds.items()},
+        "serve_main_path, captured into its graphs": captured.get(name, 0)}
         for name, count in launches.items()}
     hmm_source = "cortex_tpu_torch/csrc/hmm_forward_backward.cu"
     print(json.dumps({"kernels": [

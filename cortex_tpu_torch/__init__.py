@@ -1,7 +1,7 @@
 """cortex_tpu_torch — the PyTorch and CUDA port of cortex_tpu, for NVIDIA Hopper.
 
-It mirrors the JAX package's layout, so each function has its counterpart
-at the same path:
+It mirrors the JAX package's layout, so each module has its counterpart at
+the same path (the Pallas kernels' at ``ops/kernels*.py``):
 
 - :mod:`cortex_tpu_torch.core` — the reactive signal substrate, factor-graph
   model spec, dependency resolvers (BP / mean-field / structured VMP) and
@@ -12,25 +12,35 @@ at the same path:
   and associative-scan smoothers), vector-state chains (scan, blocked,
   associative-scan and matmul smoothers, filter, log evidence), the
   square-root and robust (Student-t) smoothers, free energies,
-  discrete-chain forward-backward and Viterbi, the HGF step, and the CUDA
-  kernels written by hand for ``sm_90a`` (the fused smoothing sweep, the
-  scaled HMM forward-backward, the HGF filter), each with a plain PyTorch
-  twin,
+  discrete-chain forward-backward and Viterbi, the HGF step, nonlinear
+  (EKF/UKF) filters, GaBP, HMC, EP and CVI, and the CUDA kernels written by
+  hand for ``sm_90a`` (the fused smoothing sweep, the scaled HMM
+  forward-backward, the HGF filter), each an operator of the
+  ``cortex_tpu_torch`` namespace beside its plain PyTorch twin,
 - :mod:`cortex_tpu_torch.dists` — exponential families (Gaussian,
   MvGaussian, Beta, Gamma, Bernoulli, Categorical, Dirichlet, NormalGamma,
   Wishart, Poisson),
-- :mod:`cortex_tpu_torch.models` — model families (LGSSM, MvLGSSM, HMM,
-  HGF, binary HGF, the diagonal and full-covariance VB-GMMs), the scalar
-  and vector ML fits and the factor graphs of the compiled path (the chain,
-  mean-field and structured SSMs),
-- :mod:`cortex_tpu_torch.parallel` — streaming with copies overlapped with
-  compute,
-- :mod:`cortex_tpu_torch.convert` — carry parameters, operators and states
-  across from numpy,
+- :mod:`cortex_tpu_torch.models` — the model zoo (LGSSM, MvLGSSM, HMM, HGF,
+  binary HGF, the VB-GMMs, SLDS, particle and Rao-Blackwellized particle
+  filters, nonlinear SSMs, GLMs and the EP classifier, AR, GPs, sparse GPs,
+  GP classification, GP state-space models, PPCA/FA, BOCPD), the ML fits
+  and the factor graphs of the compiled path,
+- :mod:`cortex_tpu_torch.parallel` — explicit SPMD on ``torch.distributed``
+  (meshes, collectives, replica- and time-sharded and pipelined smoothing)
+  and streaming with copies overlapped with compute,
+- :mod:`cortex_tpu_torch.serve` — ``torch.export`` programs captured into
+  one CUDA graph per shape, serialized programs and bucketed serving,
+- :mod:`cortex_tpu_torch.checkpoint` — tree checkpoints and retention,
+- :mod:`cortex_tpu_torch.diag` — non-finite checks, convergence monitoring,
+  R̂ and ESS,
+- :mod:`cortex_tpu_torch.viz` — DOT rendering of signals and schedules,
+- :mod:`cortex_tpu_torch.native` — the C++ signal core, built with ``g++``,
+- :mod:`cortex_tpu_torch.convert` — carry parameters, operators, states and
+  checkpoints across from the JAX package,
 - :mod:`cortex_tpu_torch.utils` — time formatting and the tree helper.
 
 It imports ``torch`` and never ``jax``.  CUDA kernels are built with
-``nvcc`` at first use on a CUDA tensor, never at import.
+``nvcc`` and the native core with ``g++`` at first use, never at import.
 """
 
 __version__ = "0.1.0"
@@ -39,7 +49,8 @@ from .core import *  # noqa: F401,F403
 from .core import __all__ as _core_all
 
 # Submodules load lazily (PEP 562), as in the JAX package.
-_SUBMODULES = ("compile", "convert", "core", "dists", "models", "ops", "parallel", "utils")
+_SUBMODULES = ("checkpoint", "compile", "convert", "core", "diag", "dists", "models", "native",
+               "ops", "parallel", "serve", "utils", "viz")
 
 __all__ = list(_core_all) + ["__version__"] + list(_SUBMODULES)
 

@@ -4,9 +4,10 @@ Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) by its own
 ``nvcc``, all started together, and the objects are linked into one shared
 library with a plain C interface, which :func:`load` opens with ``ctypes``.
 The library lands in ``build/cortex_tpu_torch/`` at the root of the checkout
-(git-ignored), named by a hash of the sources, the flags and the ``nvcc``
-version, so an edit or another toolkit builds anew and an unchanged tree
-loads what is there.  Nothing is compiled when the package is imported.
+(git-ignored) unless :func:`set_build_dir` names another directory, named
+by a hash of the sources, the flags and the ``nvcc`` version, so an edit or
+another toolkit builds anew and an unchanged tree loads what is there.
+Nothing is compiled when the package is imported.
 """
 
 from __future__ import annotations
@@ -21,11 +22,12 @@ from pathlib import Path
 from typing import List, Sequence
 
 __all__ = [
-    "BUILD_DIR", "NVCC_FLAGS", "compile_command", "find_nvcc", "library_name", "link_command",
-    "load", "sources",
+    "BUILD_DIR", "NVCC_FLAGS", "compile_command", "find_nvcc", "library_name", "library_path",
+    "link_command", "load", "set_build_dir", "sources",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+# Where libraries are built and looked for; read by each build, not at import.
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cortex_tpu_torch"
 
 NVCC_FLAGS = (
@@ -79,22 +81,40 @@ def library_name(nvcc_version: str, srcs: Sequence[Path]) -> str:
     return f"libcortex_tpu_torch_{digest.hexdigest()[:16]}.so"
 
 
+def set_build_dir(path) -> Path:
+    """Build and look for the libraries (the kernels' and the native signal
+    core's) in ``path`` from now on; returns it.  A library this process has
+    already loaded stays loaded from where it was."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    return BUILD_DIR
+
+
+def library_path(nvcc: str | None = None) -> Path:
+    """Where the kernel library of these sources, built by ``nvcc`` (default:
+    :func:`find_nvcc`'s), lies in :data:`BUILD_DIR`; asks ``nvcc`` its
+    version, and builds nothing."""
+    nvcc = nvcc or find_nvcc()
+    version = subprocess.run(
+        [nvcc, "--version"], capture_output=True, text=True, check=True
+    ).stdout
+    return BUILD_DIR / library_name(version, sorted(CSRC_DIR.glob("*.cu*")))
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
-    """Build the kernels if this tree has not built them yet, and load them.
+    """Build the kernels if :data:`BUILD_DIR` does not hold them yet, and load
+    them.  Once loaded, the library stays for the life of the process.
 
     The compiler's report (``-Xptxas=-v``: registers and shared memory of each
     kernel) is kept beside the library as ``<library>.log``.
     """
     nvcc = find_nvcc()
-    version = subprocess.run(
-        [nvcc, "--version"], capture_output=True, text=True, check=True
-    ).stdout
-    path = BUILD_DIR / library_name(version, sorted(CSRC_DIR.glob("*.cu*")))
+    path = library_path(nvcc)
     if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path.parent.mkdir(parents=True, exist_ok=True)
         tag = f"{path.stem}.{os.getpid()}"
-        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+        objs = [path.with_name(f"{tag}.{src.stem}.o") for src in sources()]
         procs = [
             subprocess.Popen(compile_command(nvcc, src, obj), stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)

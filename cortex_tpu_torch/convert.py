@@ -5,7 +5,8 @@ These take what the JAX package produces, as plain Python or numpy values
 arrays), and return the port's objects, so the two packages compute the same thing on the same
 inputs.  They import neither package's arrays: numpy is the common ground.
 Those that make tensors put them on the card unless the caller names
-another ``device``.
+another ``device``.  :func:`checkpoint_from_jax` reads a checkpoint file that
+the JAX package wrote.
 """
 
 from __future__ import annotations
@@ -38,9 +39,11 @@ from .ops.chains_mv import MvSmootherOperator
 from .ops.cvi import CVIResult
 from .ops.ep import EPResult
 from .ops.kernels_hgf import PARAMS as HGF_PARAMS
+from .utils.tree import tree_flatten, tree_unflatten
 
 __all__ = [
     "binary_hgf_from_numpy",
+    "checkpoint_from_jax",
     "binary_hgf_state_from_numpy",
     "dist_from_numpy",
     "dists_from_numpy",
@@ -297,3 +300,32 @@ def nlssm_from_numpy(params: Mapping[str, object], f, h, device="cuda") -> Nonli
         raise ValueError(f"NonlinearSSM takes the arrays Q, R, m0, P0; got {sorted(params)}")
     return NonlinearSSM(f, h, **{k: torch.tensor(np.asarray(v), device=device)
                                  for k, v in params.items()})
+
+
+def checkpoint_from_jax(path: str, like: Any, device="cuda") -> Any:
+    """Read a checkpoint written by ``cortex_tpu.checkpoint.save`` into the
+    structure of ``like`` (a tree of the port's tensors), on ``device``.
+
+    JAX's structure text cannot equal the port's, so this checks the number of
+    leaves and each leaf's shape and dtype against ``like``'s instead; it
+    relies on both packages flattening dataclass fields in order, named
+    tuples by field and dict keys sorted.  A mismatch raises ``ValueError``."""
+    leaves_like, treedef = tree_flatten(like)
+    with np.load(path) as data:
+        saved = sorted((k for k in data.files if k.startswith("leaf_")),
+                       key=lambda k: int(k.removeprefix("leaf_")))
+        if len(saved) != len(leaves_like):
+            raise ValueError(
+                f"Checkpoint structure mismatch: {len(saved)} leaves saved, "
+                f"{len(leaves_like)} expected")
+        leaves = []
+        for i, (key, leaf) in enumerate(zip(saved, leaves_like)):
+            array = data[key]
+            want = torch.as_tensor(leaf)
+            got = torch.from_numpy(np.ascontiguousarray(array))
+            if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+                raise ValueError(
+                    f"Checkpoint leaf {i} is {got.dtype} {tuple(got.shape)}, "
+                    f"expected {want.dtype} {tuple(want.shape)}")
+            leaves.append(got.to(device))
+    return tree_unflatten(treedef, leaves)

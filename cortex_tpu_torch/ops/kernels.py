@@ -13,10 +13,20 @@ plain version,
 :func:`lgssm_smooth_fused_reference`; on a CUDA tensor it launches the
 kernel (building it at first use) or raises.
 
+Each kernel is an operator of the ``cortex_tpu_torch`` namespace
+(:data:`OPS`; ``torch.ops.cortex_tpu_torch.*``, :func:`op`): its CPU
+implementation is the plain version, its CUDA implementation the kernel's
+launch, and its fake implementation gives the output shapes.  So
+``torch.export`` traces a kernel into one node of its graph, a CUDA graph
+captures its launch, and a saved program loads wherever this package's
+``ops`` is imported.
+
 ``LAUNCHES`` counts each kernel's launches (this module's and those of
 :mod:`~cortex_tpu_torch.ops.kernels_hmm` and
 :mod:`~cortex_tpu_torch.ops.kernels_hgf`), so that a run can show that its
-path went through the kernels.  :func:`_library` builds and binds them all.
+path went through the kernels.  A CUDA graph counts its kernels once, when it
+is captured: a replay runs them without Python.  :func:`_library` builds and
+binds them all.
 """
 
 from __future__ import annotations
@@ -31,12 +41,35 @@ from .chains import ChainMarginals
 
 __all__ = [
     "LAUNCHES",
+    "NAMESPACE",
+    "OPS",
     "lgssm_smooth_fused",
     "lgssm_smooth_fused_reference",
     "sweep_coefficients",
 ]
 
 LAUNCHES = {"lgssm_smooth": 0, "hmm_fb": 0, "hmm_fb_counts": 0, "hgf_filter": 0}
+
+# The kernels' operators, in one namespace named after the package
+# (``cortex_tpu_torch``; another checkout imported beside it under another
+# name, as kernel_probe.py does, gets its own); kernels_hmm and kernels_hgf
+# define theirs here too.
+NAMESPACE = __name__.split(".")[0]
+OPS = torch.library.Library(NAMESPACE, "DEF")
+
+
+def op(name: str):
+    """The operator ``name`` of :data:`NAMESPACE` (its default overload)."""
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+# Each operator's ``(operations, bytes)`` from its arguments (shapes only):
+# what the kernel must do and move (each input read once, each output
+# written once), for ``serve.CompiledFn.cost_analysis``.
+COSTS = {}
+
+
+OPS.define("lgssm_smooth(Tensor y, float A, float Q, float H, float R) -> (Tensor, Tensor)")
 
 # Shared memory one block may opt into on Hopper (227 KB), the replica tiles
 # the shared-memory path tries, largest first, and the time segments (threads)
@@ -211,30 +244,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def lgssm_smooth_fused(
-    y: torch.Tensor, A: float = 1.0, Q: float = 1.0, H: float = 1.0, R: float = 1.0
-) -> ChainMarginals:
-    """Fused BP smoothing sweep; ``y``: dense ``(n_replicas, T)`` float32.
+def _lgssm_smooth_cpu(y, A, Q, H, R):
+    out = lgssm_smooth_fused_reference(y, A, Q, H, R)
+    return out.mean, out.variance
 
-    The same marginals as :func:`~cortex_tpu_torch.ops.chains.lgssm_smooth_scan`
-    with no prior.  On a CUDA tensor it launches ``csrc/lgssm_smooth.cu``
-    (built at first use; a failed build or launch raises) and counts the
-    launch in ``LAUNCHES["lgssm_smooth"]``; on a CPU tensor it runs
-    :func:`lgssm_smooth_fused_reference`.  The TPU-only arguments of
-    ``lgssm_smooth_pallas``, ``tile`` and ``interpret``, are gone: the kernel
-    sizes its own tile, and the plain version takes interpret mode's place.
-    """
-    _check(y, A)
-    if y.device.type == "cpu":
-        return lgssm_smooth_fused_reference(y, A, Q, H, R)
-    if y.device.type != "cuda":
-        raise ValueError(f"lgssm_smooth_fused runs on cpu or cuda, not {y.device}")
+
+def _lgssm_smooth_cuda(y, A, Q, H, R):
+    """Launch ``csrc/lgssm_smooth.cu`` on ``y`` (checked by the caller)."""
     if not y.is_contiguous():
         raise ValueError("y must be contiguous")
     lib = _library()
     n, T = y.shape
     seg = segment_length(T)
-    coef = sweep_coefficients(float(A), float(Q), float(H), float(R), T, y.device, seg)
+    coef = sweep_coefficients(A, Q, H, R, T, y.device, seg)
     mean = torch.empty_like(y)
     var = torch.empty_like(y)
     tile = smem_tile(T)
@@ -255,4 +277,39 @@ def lgssm_smooth_fused(
         reason = lib.lgssm_cuda_error_string(err).decode()
         raise RuntimeError(f"lgssm_smooth kernel launch failed: {reason} ({err})")
     LAUNCHES["lgssm_smooth"] += 1
+    return mean, var
+
+
+OPS.impl("lgssm_smooth", _lgssm_smooth_cpu, "CPU")
+OPS.impl("lgssm_smooth", _lgssm_smooth_cuda, "CUDA")
+_LGSSM_SMOOTH = op("lgssm_smooth")
+# y read, mean and variance written: 12 B a replica-step, and the
+# coefficient rows; ~8 operations a replica-step.
+COSTS["lgssm_smooth"] = lambda y, *params: (8.0 * y.numel(),
+                                             12.0 * y.numel() + 12.0 * y.shape[1])
+
+
+@torch.library.register_fake(f"{NAMESPACE}::lgssm_smooth", lib=OPS)
+def _lgssm_smooth_fake(y, A, Q, H, R):
+    return torch.empty_like(y), torch.empty_like(y)
+
+
+def lgssm_smooth_fused(
+    y: torch.Tensor, A: float = 1.0, Q: float = 1.0, H: float = 1.0, R: float = 1.0
+) -> ChainMarginals:
+    """Fused BP smoothing sweep; ``y``: dense ``(n_replicas, T)`` float32.
+
+    The same marginals as :func:`~cortex_tpu_torch.ops.chains.lgssm_smooth_scan`
+    with no prior.  On a CUDA tensor it launches ``csrc/lgssm_smooth.cu``
+    (built at first use; a failed build or launch raises) and counts the
+    launch in ``LAUNCHES["lgssm_smooth"]``; on a CPU tensor it runs
+    :func:`lgssm_smooth_fused_reference`.  Both go through the operator
+    ``torch.ops.cortex_tpu_torch.lgssm_smooth``.  The TPU-only arguments of
+    ``lgssm_smooth_pallas``, ``tile`` and ``interpret``, are gone: the kernel
+    sizes its own tile, and the plain version takes interpret mode's place.
+    """
+    _check(y, A)
+    if y.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lgssm_smooth_fused runs on cpu or cuda, not {y.device}")
+    mean, var = _LGSSM_SMOOTH(y, float(A), float(Q), float(H), float(R))
     return ChainMarginals(mean, var)

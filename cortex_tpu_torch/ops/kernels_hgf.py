@@ -6,7 +6,8 @@ recursion of every replica in one kernel, ``csrc/hgf_filter.cu``, which
 reads ``u`` once and writes the final state plus only the requested tracks.
 On a CUDA tensor it launches the kernel (built at first use; a failed build
 or launch raises) and counts the launch in ``kernels.LAUNCHES["hgf_filter"]``;
-on a CPU tensor it runs the plain version, :func:`hgf_filter_fused_reference`.
+on a CPU tensor it runs the plain version, :func:`hgf_filter_fused_reference`;
+both through the operator ``torch.ops.cortex_tpu_torch.hgf_filter``.
 
 The TPU-only arguments ``tile`` and ``interpret`` are gone, and so is the
 VMEM budget: the kernel prefetches ``u`` into registers and writes the tracks
@@ -26,7 +27,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .kernels import LAUNCHES, _library
+from .kernels import COSTS, LAUNCHES, NAMESPACE, OPS, _library, op
 
 __all__ = [
     "ALL_TRACKS",
@@ -117,6 +118,78 @@ def hgf_filter_fused_reference(
     return (mu1, pi1, mu2, pi2), tuple(values[name] for name in tracks)
 
 
+def _hgf_filter_cpu(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,
+                    tracks, bf16):
+    finals, values = hgf_filter_fused_reference(
+        u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,
+        tracks=[ALL_TRACKS[i] for i in tracks],
+        track_dtype=torch.bfloat16 if bf16 else torch.float32)
+    return torch.stack(finals), list(values)
+
+
+def _hgf_filter_cuda(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,
+                     tracks, bf16):
+    """Launch ``csrc/hgf_filter.cu`` on ``u`` (checked by the caller)."""
+    if not u.is_contiguous():
+        raise ValueError("u must be contiguous")
+    R, T = u.shape
+    if R >= 2**31 or T >= 2**31:
+        raise ValueError(f"u of shape {tuple(u.shape)} is too large for the kernel")
+    lib = _library()
+    track_dtype = torch.bfloat16 if bf16 else torch.float32
+    finals = torch.empty((4, R), dtype=u.dtype, device=u.device)
+    outs = {ALL_TRACKS[i]: torch.empty((R, T), dtype=track_dtype, device=u.device)
+            for i in tracks}
+    # Output pointers in ALL_TRACKS order; 0 marks a track not written.
+    pointers = [outs[name].data_ptr() if name in outs else 0 for name in ALL_TRACKS]
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.hgf_filter_f32(
+            u.data_ptr(), finals.data_ptr(), *pointers, R, T, int(bf16),
+            # The Python-level constants of the step, rounded once to float32
+            # as torch rounds a number that multiplies a float32 tensor.
+            kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,
+            0.5 * kappa ** 2, 0.5 * kappa, stream,
+        )
+    if err != 0:
+        reason = lib.lgssm_cuda_error_string(err).decode()
+        raise RuntimeError(f"hgf_filter kernel launch failed: {reason} ({err})")
+    LAUNCHES["hgf_filter"] += 1
+    return finals, [outs[ALL_TRACKS[i]] for i in tracks]
+
+
+OPS.define(
+    "hgf_filter(Tensor u, float kappa, float omega, float theta, float pi_u, float max_log_nu, "
+    "float min_pi2, float max_mu2_step, int[] tracks, bool bf16) -> (Tensor, Tensor[])")
+OPS.impl("hgf_filter", _hgf_filter_cpu, "CPU")
+OPS.impl("hgf_filter", _hgf_filter_cuda, "CUDA")
+_HGF_FILTER = op("hgf_filter")
+# Operations of one replica-step: about 35 float32 adds, multiplies and
+# compares, plus one exp and five reciprocals or divisions on the special
+# function unit (16 a cycle per SM against 128 float32 lanes), each counted
+# as 8.
+OPS_PER_STEP = 35 + 8 * 6
+
+
+def _cost(u, *params_tracks_bf16):
+    """u read, the finals and the tracks written; OPS_PER_STEP a replica-step."""
+    tracks, bf16 = params_tracks_bf16[-2:]
+    R, T = u.shape
+    nbytes = 4.0 * R * T + 16.0 * R + len(tracks) * (2 if bf16 else 4) * R * T
+    return float(OPS_PER_STEP * R * T), nbytes
+
+
+COSTS["hgf_filter"] = _cost
+
+
+@torch.library.register_fake(f"{NAMESPACE}::hgf_filter", lib=OPS)
+def _hgf_filter_fake(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step, tracks,
+                     bf16):
+    track_dtype = torch.bfloat16 if bf16 else torch.float32
+    return u.new_empty((4, u.shape[0])), [u.new_empty(u.shape, dtype=track_dtype)
+                                          for _ in tracks]
+
+
 def hgf_filter_fused(
     u: torch.Tensor,
     kappa: float = 1.0,
@@ -142,32 +215,9 @@ def hgf_filter_fused(
     """
     params = dict(zip(PARAMS, (kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step)))
     tracks, track_dtype, p = _check(u, tracks, track_dtype, params)
-    if u.device.type == "cpu":
-        return hgf_filter_fused_reference(u, **p, tracks=tracks, track_dtype=track_dtype)
-    if u.device.type != "cuda":
+    if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hgf_filter_fused runs on cpu or cuda, not {u.device}")
-    if not u.is_contiguous():
-        raise ValueError("u must be contiguous")
-    R, T = u.shape
-    if R >= 2**31 or T >= 2**31:
-        raise ValueError(f"u of shape {tuple(u.shape)} is too large for the kernel")
-    lib = _library()
-    finals = torch.empty((4, R), dtype=u.dtype, device=u.device)
-    outs = {name: torch.empty((R, T), dtype=track_dtype, device=u.device) for name in tracks}
-    # Output pointers in ALL_TRACKS order; 0 marks a track not written.
-    pointers = [outs[name].data_ptr() if name in outs else 0 for name in ALL_TRACKS]
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.hgf_filter_f32(
-            u.data_ptr(), finals.data_ptr(), *pointers, R, T,
-            int(track_dtype == torch.bfloat16),
-            # The Python-level constants of the step, rounded once to float32
-            # as torch rounds a number that multiplies a float32 tensor.
-            p["kappa"], p["omega"], p["theta"], p["pi_u"], p["max_log_nu"], p["min_pi2"],
-            p["max_mu2_step"], 0.5 * p["kappa"] ** 2, 0.5 * p["kappa"], stream,
-        )
-    if err != 0:
-        reason = lib.lgssm_cuda_error_string(err).decode()
-        raise RuntimeError(f"hgf_filter kernel launch failed: {reason} ({err})")
-    LAUNCHES["hgf_filter"] += 1
-    return tuple(finals.unbind(0)), tuple(outs[name] for name in tracks)
+    finals, values = _HGF_FILTER(u, *(p[name] for name in PARAMS),
+                                 [ALL_TRACKS.index(name) for name in tracks],
+                                 track_dtype == torch.bfloat16)
+    return tuple(finals.unbind(0)), tuple(values)

@@ -10,8 +10,9 @@ The counterparts of ``cortex_tpu/ops/pallas_hmm.py``:
 
 Both launch ``csrc/hmm_forward_backward.cu`` on a CUDA tensor (built at first
 use; a failed build or launch raises) and count the launch in
-``kernels.LAUNCHES`` (``"hmm_fb"``, ``"hmm_fb_counts"``).  On a CPU tensor
-they run the plain versions, :func:`hmm_forward_backward_fused_reference`
+``kernels.LAUNCHES`` (``"hmm_fb"``, ``"hmm_fb_counts"``), through the
+operators ``torch.ops.cortex_tpu_torch.hmm_fb`` and ``hmm_fb_counts``.  On a
+CPU tensor they run the plain versions, :func:`hmm_forward_backward_fused_reference`
 and :func:`hmm_forward_backward_counts_fused_reference`: the TPU kernel's
 scaled recursion with its 1e-30 floors, and the TPU wrapper's formulas for
 the counts.  The TPU-only arguments ``tile`` and ``interpret`` are gone.
@@ -31,7 +32,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .chains import _full_float32_matmul
-from .kernels import LAUNCHES, SMEM_LIMIT_BYTES, _library, row_pitch
+from .kernels import (COSTS, LAUNCHES, NAMESPACE, OPS, SMEM_LIMIT_BYTES, _library, op,
+                      row_pitch)
 
 __all__ = [
     "HMMFusedPosterior",
@@ -171,9 +173,8 @@ def hmm_forward_backward_counts_fused_reference(
 
 
 def _launch(lik, A, pi, counts: bool):
-    """Check the operands, launch the kernel and count the launch."""
-    if lik.device.type != "cuda":
-        raise ValueError(f"the HMM kernel runs on cpu or cuda, not {lik.device}")
+    """Launch the kernel on operands checked by the caller, and count the
+    launch."""
     if not (lik.is_contiguous() and A.is_contiguous() and pi.is_contiguous()):
         raise ValueError("lik, A and pi must be contiguous")
     R, T, K = lik.shape
@@ -207,6 +208,48 @@ def _launch(lik, A, pi, counts: bool):
     return gamma, xi, logz
 
 
+OPS.define("hmm_fb(Tensor lik, Tensor A, Tensor pi) -> (Tensor, Tensor)")
+OPS.define("hmm_fb_counts(Tensor lik, Tensor A, Tensor pi) -> (Tensor, Tensor, Tensor)")
+OPS.impl("hmm_fb", lambda lik, A, pi: tuple(hmm_forward_backward_fused_reference(lik, A, pi)),
+         "CPU")
+OPS.impl("hmm_fb_counts",
+         lambda lik, A, pi: tuple(hmm_forward_backward_counts_fused_reference(lik, A, pi)), "CPU")
+OPS.impl("hmm_fb", lambda lik, A, pi: _launch(lik, A, pi, counts=False)[::2], "CUDA")
+OPS.impl("hmm_fb_counts", lambda lik, A, pi: _launch(lik, A, pi, counts=True), "CUDA")
+
+
+_HMM_FB, _HMM_FB_COUNTS = op("hmm_fb"), op("hmm_fb_counts")
+
+
+def _cost(lik, A, pi, counts: bool):
+    """lik, A and pi read, gamma, the log-evidence (and xi_sum) written; about
+    4K^2 + 9K operations a replica-step (forward and backward products, sums,
+    divisions), 2K^2 + 3K more for the counts."""
+    R, T, K = lik.shape
+    nbytes = 4.0 * (2 * R * T * K + R + K * K + K + (R * K * K if counts else 0))
+    return float(R * T * (4 * K * K + 9 * K + ((2 * K * K + 3 * K) if counts else 0))), nbytes
+
+
+COSTS["hmm_fb"] = lambda lik, A, pi: _cost(lik, A, pi, counts=False)
+COSTS["hmm_fb_counts"] = lambda lik, A, pi: _cost(lik, A, pi, counts=True)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::hmm_fb", lib=OPS)
+def _hmm_fb_fake(lik, A, pi):
+    return torch.empty_like(lik), lik.new_empty(lik.shape[:1])
+
+
+@torch.library.register_fake(f"{NAMESPACE}::hmm_fb_counts", lib=OPS)
+def _hmm_fb_counts_fake(lik, A, pi):
+    R, _, K = lik.shape
+    return torch.empty_like(lik), lik.new_empty((R, K, K)), lik.new_empty((R,))
+
+
+def _check_device(lik: torch.Tensor) -> None:
+    if lik.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the HMM kernel runs on cpu or cuda, not {lik.device}")
+
+
 def hmm_forward_backward_fused(
     lik: torch.Tensor, A: torch.Tensor, pi: torch.Tensor
 ) -> HMMFusedPosterior:
@@ -214,10 +257,8 @@ def hmm_forward_backward_fused(
     likelihoods (linear space), ``A`` (K, K) row-stochastic, ``pi`` (K,), all
     on one device.  Returns ``(gamma, log_evidence)``."""
     _check(lik, A, pi)
-    if lik.device.type == "cpu":
-        return hmm_forward_backward_fused_reference(lik, A, pi)
-    gamma, _, logz = _launch(lik, A, pi, counts=False)
-    return HMMFusedPosterior(gamma, logz)
+    _check_device(lik)
+    return HMMFusedPosterior(*_HMM_FB(lik, A, pi))
 
 
 def hmm_forward_backward_counts_fused(
@@ -227,6 +268,5 @@ def hmm_forward_backward_counts_fused(
     pairwise counts ``xi_sum`` (R, K, K) and the log-evidence.  On the card
     the counts are summed inside the backward pass."""
     _check(lik, A, pi)
-    if lik.device.type == "cpu":
-        return hmm_forward_backward_counts_fused_reference(lik, A, pi)
-    return HMMFusedCounts(*_launch(lik, A, pi, counts=True))
+    _check_device(lik)
+    return HMMFusedCounts(*_HMM_FB_COUNTS(lik, A, pi))

@@ -3,7 +3,9 @@
 The compiled path stacks, slices and concatenates whole distributions at
 once, as the JAX package does with pytrees.  A tree here is built of
 dataclass instances (their ``init`` fields, in order, the class kept),
-tuples, lists and dicts (keys in sorted order).  Anything else is a leaf.
+named tuples (their fields, the class kept), tuples, lists and dicts (keys in
+sorted order); ``None`` is a node with no children, as in
+``jax.tree_util``.  Anything else is a leaf.
 
 Stacking and concatenation raise :class:`ValueError` on mismatched
 structures, shapes or devices, as ``jnp.stack`` and ``jax.tree_util`` do:
@@ -19,7 +21,10 @@ import numpy as np
 import torch
 
 __all__ = [
+    "keystr",
     "tree_flatten",
+    "tree_flatten_with_path",
+    "treedef_str",
     "tree_unflatten",
     "tree_leaves",
     "tree_structure",
@@ -32,13 +37,21 @@ __all__ = [
 _LEAF = ("leaf",)
 
 
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
+
 def _node(tree: Any) -> Tuple[Any, List[Any]]:
     """``(aux, children)`` of one node, or ``(_LEAF, [])`` for a leaf."""
     if isinstance(tree, torch.Tensor):
         return _LEAF, []
+    if tree is None:
+        return ("none",), []
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         names = tuple(f.name for f in dataclasses.fields(tree) if f.init)
         return ("dataclass", type(tree), names), [getattr(tree, n) for n in names]
+    if _is_namedtuple(tree):
+        return ("namedtuple", type(tree), type(tree)._fields), list(tree)
     if isinstance(tree, tuple):
         return ("tuple", len(tree)), list(tree)
     if isinstance(tree, list):
@@ -51,8 +64,12 @@ def _node(tree: Any) -> Tuple[Any, List[Any]]:
 
 def _build(aux: Tuple, children: List[Any]) -> Any:
     kind = aux[0]
+    if kind == "none":
+        return None
     if kind == "dataclass":
         return aux[1](**dict(zip(aux[2], children)))
+    if kind == "namedtuple":
+        return aux[1](*children)
     if kind == "tuple":
         return tuple(children)
     if kind == "list":
@@ -87,6 +104,39 @@ def tree_unflatten(treedef: Any, leaves: Sequence[Any]) -> Any:
     return build(treedef)
 
 
+def _child_keys(aux: Tuple, n: int) -> List[str]:
+    """The key of each child of a node in ``jax.tree_util.keystr``'s style."""
+    kind = aux[0]
+    if kind in ("dataclass", "namedtuple"):
+        return [f".{name}" for name in aux[2]]
+    if kind == "dict":
+        return [f"[{key!r}]" for key in aux[1]]
+    return [f"[{i}]" for i in range(n)]
+
+
+def tree_flatten_with_path(tree: Any) -> Tuple[List[Tuple[Tuple[str, ...], Any]], Any]:
+    """``([(path, leaf), ...], treedef)``: each leaf with its path from the
+    root, a tuple of keys in ``jax.tree_util``'s style (``['key']`` for a
+    dict entry, ``.name`` for a dataclass or named-tuple field, ``[i]`` for
+    a sequence item); :func:`keystr` joins them."""
+    aux, children = _node(tree)
+    if aux is _LEAF:
+        return [((), tree)], _LEAF
+    pairs: List[Tuple[Tuple[str, ...], Any]] = []
+    defs = []
+    for key, child in zip(_child_keys(aux, len(children)), children):
+        sub_pairs, sub_def = tree_flatten_with_path(child)
+        pairs.extend(((key, *path), leaf) for path, leaf in sub_pairs)
+        defs.append(sub_def)
+    return pairs, (aux, tuple(defs))
+
+
+def keystr(path: Sequence[str]) -> str:
+    """A path of :func:`tree_flatten_with_path` as one string, as
+    ``jax.tree_util.keystr`` writes it (``"['a'].mu1[0]"``)."""
+    return "".join(path)
+
+
 def tree_leaves(tree: Any) -> List[Any]:
     return tree_flatten(tree)[0]
 
@@ -105,18 +155,36 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
         o_leaves, o_def = tree_flatten(other)
         if o_def != treedef:
             raise ValueError(
-                f"tree structures differ: {_describe(treedef)} and {_describe(o_def)}"
+                f"tree structures differ: {treedef_str(treedef)} and {treedef_str(o_def)}"
             )
         others.append(o_leaves)
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
 
 
-def _describe(treedef: Any) -> str:
-    if treedef == _LEAF:
-        return "leaf"
-    aux, defs = treedef
-    name = aux[1].__name__ if aux[0] == "dataclass" else aux[0]
-    return f"{name}({', '.join(_describe(d) for d in defs)})"
+def treedef_str(treedef: Any) -> str:
+    """A structure as text, in the style of ``str(jax.tree_util.PyTreeDef)``:
+    ``*`` a leaf, ``{'a': *, 'b': (*, *)}``, ``[*]``, ``None``, and
+    ``CustomNode(Gaussian[()], [*, *])`` or ``CustomNode(namedtuple[HGFState],
+    [*, ...])`` for a class."""
+    def text(d):
+        if d == _LEAF:
+            return "*"
+        aux, defs = d
+        parts = [text(c) for c in defs]
+        kind = aux[0]
+        if kind == "none":
+            return "None"
+        if kind == "dataclass":
+            return f"CustomNode({aux[1].__name__}[()], [{', '.join(parts)}])"
+        if kind == "namedtuple":
+            return f"CustomNode(namedtuple[{aux[1].__name__}], [{', '.join(parts)}])"
+        if kind == "tuple":
+            return f"({parts[0]},)" if len(parts) == 1 else f"({', '.join(parts)})"
+        if kind == "list":
+            return f"[{', '.join(parts)}]"
+        return "{" + ", ".join(f"{k!r}: {p}" for k, p in zip(aux[1], parts)) + "}"
+
+    return f"PyTreeDef({text(treedef)})"
 
 
 def as_float32_tensor(x: Any, device=None) -> torch.Tensor:

@@ -17,6 +17,17 @@ from cortex_tpu_torch.ops import chains as tc
 
 from cortex_tpu.ops import chains as jc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 PARAMS = [dict(), dict(A=0.9, Q=0.5, H=2.0, R=0.3)]
 # One shape for every JAX call: JAX compiles each function once per shape.
 SHAPE = (6, 40)

@@ -37,6 +37,17 @@ from cortex_tpu.ops import chains_mv as J
 from cortex_tpu.ops import robust as jrobust
 from cortex_tpu.ops import sqrt_kalman as jsqrt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 SEQ_TOL, BLOCKED_TOL, ASSOC_TOL = 1e-5, 2e-4, 5e-4
 
 

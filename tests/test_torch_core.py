@@ -22,6 +22,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 import cortex_tpu_torch
 import cortex_tpu_torch.compile
@@ -32,6 +33,17 @@ import cortex_tpu
 import cortex_tpu.compile
 import cortex_tpu.dists
 import cortex_tpu.models
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 HERE = pathlib.Path(__file__).parent
 
@@ -277,6 +289,59 @@ def test_core_modules_are_copies_of_the_jax_packages():
     for rel in ("utils/__init__.py", "core/signal.py", "core/variants.py",
                 "core/model_engine.py", "core/graph.py", "core/resolvers.py",
                 "core/engine.py", "core/__init__.py", "compile/schedule.py",
-                "compile/lowering.py"):
+                "compile/lowering.py", "viz/dot.py", "viz/__init__.py"):
         assert code_lines(root / "cortex_tpu_torch" / rel) == code_lines(
             root / "cortex_tpu" / rel), rel
+
+
+# The Pallas kernels' modules and their counterparts in the port, with the
+# public names that the port renamed (JAX's "pallas" method is "fused").
+PALLAS_COUNTERPARTS = {
+    "ops/pallas_kernels.py": "ops/kernels.py",
+    "ops/pallas_hmm.py": "ops/kernels_hmm.py",
+    "ops/pallas_hgf.py": "ops/kernels_hgf.py",
+}
+RENAMED = {
+    "lgssm_smooth_pallas": "lgssm_smooth_fused",
+    "hmm_forward_backward_pallas": "hmm_forward_backward_fused",
+    "hmm_forward_backward_counts_pallas": "hmm_forward_backward_counts_fused",
+    "HMMPallasPosterior": "HMMFusedPosterior",
+    "HMMPallasCounts": "HMMFusedCounts",
+    "hgf_filter_pallas": "hgf_filter_fused",
+}
+
+
+def _public_names(module):
+    """``__all__``, else the names a module defines that do not start with
+    an underscore (not those it imports)."""
+    import inspect
+
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    return {name for name, obj in vars(module).items()
+            if not name.startswith("_") and not inspect.ismodule(obj)
+            and getattr(obj, "__module__", module.__name__) == module.__name__}
+
+
+def test_every_jax_module_has_its_counterpart_in_the_port():
+    """Each module of cortex_tpu has a module at the same path in
+    cortex_tpu_torch with each of its public names (the Pallas files'
+    counterparts are ops/kernels*.py, under the names in RENAMED)."""
+    import importlib
+
+    root = HERE.parent
+    missing = {}
+    for src in sorted((root / "cortex_tpu").rglob("*.py")):
+        rel = src.relative_to(root / "cortex_tpu").as_posix()
+        port_rel = PALLAS_COUNTERPARTS.get(rel, rel)
+        if not (root / "cortex_tpu_torch" / port_rel).exists():
+            missing[rel] = "no module"
+            continue
+        names = [p for p in rel.removesuffix(".py").split("/") if p != "__init__"]
+        port_names = [p for p in port_rel.removesuffix(".py").split("/") if p != "__init__"]
+        jax_mod = importlib.import_module(".".join(["cortex_tpu", *names]))
+        port_mod = importlib.import_module(".".join(["cortex_tpu_torch", *port_names]))
+        lacking = {RENAMED.get(n, n) for n in _public_names(jax_mod)} - _public_names(port_mod)
+        if lacking:
+            missing[rel] = sorted(lacking)
+    assert not missing, missing

@@ -36,6 +36,17 @@ from cortex_tpu_torch.models import HGF, HMM, LGSSM
 from cortex_tpu_torch.ops import kernels, kernels_hgf, kernels_hmm
 from cortex_tpu_torch.parallel import StreamingSession, stream_filter
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = Path(__file__).resolve().parents[1]
 PAIR = kernels_hmm.PAIR
 NONDEFAULT = dict(A=0.9, Q=0.5, H=2.0, R=0.7)
@@ -510,3 +521,85 @@ def test_chip_smoke_zoo_main_path_on_card(cuda):
     checks = smoke.run_zoo_main_path(torch, models, ops, "cuda", shapes=ZOO_SMALL, refs=refs)
     assert len(checks) > 60
     assert kernels.LAUNCHES == before  # the zoo runs none of K1-K4
+
+
+def _card_fn(kernel, device):
+    """A function through ``kernel`` and two inputs for it on ``device``."""
+    if kernel == "lgssm_smooth":
+        return ops.lgssm_smooth_fused, _walk(1, (100, 100), device), _walk(2, (100, 100), device)
+    if kernel == "hmm_fb":
+        A = torch.tensor([[0.9, 0.1], [0.2, 0.8]], device=device)
+        pi = torch.tensor([0.5, 0.5], device=device)
+        liks = [torch.from_numpy(np.random.default_rng(s).random((100, 64, 2), dtype=np.float32)
+                                 + np.float32(0.1)).to(device) for s in (3, 4)]
+        return (lambda lik: kernels_hmm.hmm_forward_backward_fused(lik, A, pi)), *liks
+    return ((lambda u: kernels_hgf.hgf_filter_fused(u, tracks=("mu1", "pi2"),
+                                                    track_dtype=torch.bfloat16)),
+            0.1 * _walk(5, (100, 256), device), 0.1 * _walk(6, (100, 256), device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lgssm_smooth", "hmm_fb", "hgf_filter"])
+def test_a_bucket_captures_its_kernel_once_and_replays_it(cuda, kernel):
+    """aot_compile on the card: one launch captured into the graph; a replay
+    runs it without Python (the count does not move) and equals the eager
+    call; outputs are copies; a request unlike the example raises."""
+    from cortex_tpu_torch import serve
+    from cortex_tpu_torch.utils.tree import tree_leaves
+
+    fn, x, other = _card_fn(kernel, cuda)
+    compiled = serve.aot_compile(fn, x)
+    assert compiled.captured_launches[kernel] == 1
+    assert sum(compiled.captured_launches.values()) == 1
+    first = compiled(x)
+    kept = [t.clone() for t in tree_leaves(first)]
+    for inp in (other, x):
+        launches = kernels.LAUNCHES[kernel]
+        got = compiled(inp)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[kernel] == launches
+        for g, w in zip(tree_leaves(got), tree_leaves(fn(inp))):
+            assert torch.equal(g, w)
+    assert all(torch.equal(g, w) for g, w in zip(tree_leaves(first), kept))
+    with pytest.raises(TypeError):
+        compiled(x[:-1])
+    with pytest.raises(TypeError):
+        compiled(x.cpu())
+    assert compiled.memory_analysis().graph_pool_bytes >= 0
+    assert compiled.cost_analysis()["flops"] > 0
+
+
+@pytest.mark.cuda
+def test_export_serialized_k1_loads_and_launches_the_kernel(cuda):
+    from cortex_tpu_torch import serve
+
+    y = _walk(7, (1_000, 100), cuda)
+    blob = serve.export_serialized(lambda y: tuple(ops.lgssm_smooth_fused(y)), y)
+    loaded = serve.load_serialized(blob)
+    launches = kernels.LAUNCHES["lgssm_smooth"]
+    mean, var = loaded(y)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lgssm_smooth"] == launches + 1
+    want = ops.lgssm_smooth_fused(y)
+    assert torch.equal(mean, want.mean) and torch.equal(var, want.variance)
+
+
+@pytest.mark.cuda
+def test_chip_smoke_servers_on_card(cuda, tmp_path):
+    """chip_smoke.py's servers at a small size: every answer equal to the
+    eager call, one launch captured a bucket; and at the phase's size, in a
+    fresh process, the kernel named in a profiled replay."""
+    from cortex_tpu_torch import serve
+
+    smoke = _chip_smoke()
+    shapes = {**smoke.SERVE_SHAPES,
+              "lgssm": {"T": 100, "max_batch": 64, "min_bucket": 8, "requests": (3, 9, 64),
+                        "precompile": True},
+              "hmm": {"T": 64, "K": 4, "M": 8, "max_batch": 64, "min_bucket": 8,
+                      "requests": (5, 33)}}
+    run = smoke.run_servers(torch, models, ops, serve, "cuda", shapes=shapes, n_ref=8)
+    assert run["captured"]["lgssm"] == {8: 1, 16: 1, 32: 1, 64: 1}
+    assert all(set(c.values()) == {1} for c in run["captured"].values())
+    profiled = smoke.run_replay_profile(tmp_path)
+    assert sorted(c["server"] for c in profiled) == sorted(run["servers"])
+    assert all(c["replay_ran"] for c in profiled)

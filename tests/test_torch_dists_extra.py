@@ -23,6 +23,17 @@ from cortex_tpu_torch import convert
 
 import cortex_tpu.dists as J
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 DTYPES = [np.float32, np.float64]
 TOL = {np.float32: 1e-5, np.float64: 1e-10}
 SHAPE = (3, 2)

@@ -16,6 +16,17 @@ from cortex_tpu_torch.models import LGSSMParams, fit_hgf_ml, fit_lgssm_em, fit_l
 
 from cortex_tpu.models import fit as jfit
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 TOL = 1e-4
 
 

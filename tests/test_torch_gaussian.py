@@ -29,6 +29,17 @@ from cortex_tpu_torch.dists import gaussian as tgauss
 import cortex_tpu.dists as J
 from cortex_tpu.dists import gaussian as jgauss
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 RTOL = ATOL = 1e-6
 SHAPE = (3, 4)
 

@@ -32,6 +32,17 @@ import cortex_tpu.models as jmodels
 from cortex_tpu.ops import lgssm_messages_scan as j_messages
 from cortex_tpu.ops import free_energy as jfe
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = Path(__file__).resolve().parents[1]
 TOL = {np.float32: (1e-4, 1e-5), np.float64: (1e-9, 1e-9)}
 PAIRS = {"GMM": (GMM, jmodels.GMM), "GMMFull": (GMMFull, jmodels.GMMFull)}

@@ -22,6 +22,17 @@ from cortex_tpu.models import HGF as JaxHGF
 from cortex_tpu.ops.pallas_hgf import ALL_TRACKS as JAX_TRACKS
 from cortex_tpu.ops.pallas_hgf import hgf_filter_pallas
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 DEFAULTS = dict(kappa=1.0, omega=-2.0, theta=0.05, pi_u=10.0, max_log_nu=20.0, min_pi2=1e-2,
                 max_mu2_step=5.0)
 NONDEFAULT = dict(kappa=1.4, omega=-3.0, theta=0.2, pi_u=4.0, max_log_nu=8.0, min_pi2=0.05,

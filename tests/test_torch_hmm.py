@@ -27,6 +27,17 @@ from cortex_tpu import models as jmodels
 from cortex_tpu.ops.hmm import hmm_forward_backward as jax_fb
 from cortex_tpu.ops.hmm import hmm_viterbi as jax_viterbi
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = Path(__file__).resolve().parents[1]
 # The slice's shape: R replicas of T steps, K states, M symbols.
 R_, T_, K_, M_ = 16, 24, 3, 4

@@ -22,6 +22,17 @@ from cortex_tpu_torch.ops import kernels, lgssm_smooth_scan
 from cortex_tpu.ops.pallas_kernels import lgssm_smooth_pallas
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _walk(seed, shape):
     rng = np.random.default_rng(seed)
     return rng.normal(size=shape).cumsum(axis=-1).astype(np.float32)

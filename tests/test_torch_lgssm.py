@@ -27,6 +27,17 @@ from cortex_tpu.ops import lgssm_smoother_operator as jax_operator
 from cortex_tpu.ops.pallas_kernels import lgssm_smooth_pallas
 from test_lgssm import numpy_rts
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = Path(__file__).resolve().parents[1]
 TOL = {"scan": 1e-5, "matmul": 2e-4, "assoc": 1e-3}
 PARAMS = [dict(), dict(A=0.9, Q=0.5, H=2.0, R=0.3)]

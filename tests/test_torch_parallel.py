@@ -33,6 +33,17 @@ import cortex_tpu.parallel as jparallel
 from cortex_tpu.ops import lgssm_smooth_scan
 from cortex_tpu.ops.chains_mv import mv_lgssm_smooth
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = Path(__file__).resolve().parents[1]
 WORLD = 4
 WORLD_TIMEOUT = 120.0

@@ -13,8 +13,20 @@ each phase's groups sorted; the values do not depend on that order.
 """
 
 import pytest
+import torch
 
 from test_torch_core import GRAPHS, PKGS, build
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _canonical(plan_summary):

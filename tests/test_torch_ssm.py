@@ -42,6 +42,17 @@ import cortex_tpu.models as jmodels
 from cortex_tpu.models.particle import particle_filter as j_particle_filter
 from cortex_tpu.models.particle import systematic_resample as j_systematic_resample
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = Path(__file__).resolve().parents[1]
 
 TWO = dict(Pi=[[0.97, 0.03], [0.03, 0.97]], A=[0.98, 0.98], Q=[0.02, 2.0], H=[1.0, 1.0],

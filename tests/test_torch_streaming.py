@@ -18,6 +18,17 @@ from cortex_tpu.models import HGF as JaxHGF
 from cortex_tpu.parallel.streaming import StreamingSession as JaxSession
 from cortex_tpu.parallel.streaming import stream_filter as jax_stream_filter
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are small, and the test runner's
+    workers share the cores (a worker's default threads oversubscribe them,
+    8-20x slower on small tensors)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 R_, T_ = 8, 96
 
 
