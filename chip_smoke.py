@@ -1,8 +1,8 @@
 """Drive the PyTorch port's main paths once on an NVIDIA GPU: LGSSM, HMM, HGF,
 the generic compiled path, the Gaussian mixtures, the vector chains, the
 parallel layer, the switching and particle state-space models, the rest
-of the model zoo, and serving (CUDA graphs, exported programs, checkpoints,
-diagnostics, the native signal core).
+of the model zoo, serving (CUDA graphs, exported programs, checkpoints,
+diagnostics, the native signal core), and the kernels' paths fed numpy.
 
 Run from the root of a checkout, with one CUDA card::
 
@@ -133,6 +133,16 @@ single-device runs.  Phases, each printing JSON lines:
     replay's parts (check, copy in, replay, copies out), and the native
     against the Python signal core's fan-out on the host (the native must
     be faster).
+24. ``boundary``: every kernel's path fed float64 and int64 numpy arrays,
+    each a reversed view, as a user of the JAX package passes them, at full
+    width: ``LGSSM.smooth(method="fused")`` at 10,000 x 100 (K1), at
+    ``ladder.hmm`` ``HMM(K, numpy log_pi)`` with ``smooth(method="fused")``
+    (K3), ``hmm_forward_backward_fused`` (K2), ``fit_vmp(method="fused")``
+    on int64 symbols (K3) and ``viterbi`` (int32), ``HGF.filter(method=
+    "fused")`` at ``ladder.hgf`` (K4), a float64 request of 1,000 replicas
+    to phase 22's K1 server, ``rhat`` and ``ess``; each result on the card,
+    float32 (int32), equal bit for bit to the tensor-fed call; each call's
+    launches and time, and the phase's seconds.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 A failed check raises: the exit code is non-zero and the last line is not
@@ -1362,8 +1372,8 @@ def phase_generic_times(torch, LGSSM, ops, card: str) -> dict:
             device = _count_kernels(torch, timed[name][0])
             emit(phase="generic_times", R=GENERIC_R, T=GENERIC_T, path=name, ms=ms[name],
                  ms_rounds=rounds, device_ms=device["device_ms"],
-                 host_share=1.0 - device["device_ms"] / ms[name], kernels_per_call=device["kernels"],
-                 card=card)
+                 host_share=1.0 - device["device_ms"] / ms[name],
+                 kernels_per_call=device["kernels"], card=card)
             ms[f"{name} device"] = device["device_ms"]
     steady = (ms[f"structured VMP x{it_long}"] - ms[f"structured VMP x{it}"]) / (it_long - it)
     warm = ms[f"structured VMP x{it}"] - (it - 1) * steady
@@ -2463,8 +2473,10 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
         session.push(u[:, i:i + 10])
     blocks["hgf streamed mu1"] = session.flush().mu1
 
-    slds = models.SLDS(Pi=[[0.95, 0.05], [0.05, 0.95]], A=[0.98, 0.98], Q=[0.02, 2.0],
-                       H=[1.0, 1.0], R=[0.1, 0.1], prior=(0.0, 1.0))
+    # The lists follow Pi, a tensor on the rank's device.
+    slds = models.SLDS(Pi=torch.tensor([[0.95, 0.05], [0.05, 0.95]], device=device),
+                       A=[0.98, 0.98], Q=[0.02, 2.0], H=[1.0, 1.0], R=[0.1, 0.1],
+                       prior=(0.0, 1.0))
     beliefs = slds.filter(parallel.shard_replicas(data["slds_y"], rmesh))
     blocks["slds mean"], blocks["slds probs"] = beliefs.mean, beliefs.regime_probs
     blocks["slds loglik"] = beliefs.loglik
@@ -3455,8 +3467,9 @@ def run_zoo_main_path(torch, models, ops, device, shapes=ZOO_SHAPES, refs=ZOO_RE
     S = np.linalg.inv(np.eye(X64.shape[1]) + X64.T @ X64 / 0.25)
     m = S @ (X64.T @ data["y_lin"].astype(np.float64)) / 0.25
     got = outs["cvi Gaussian, one step"]
-    check("cvi Gaussian, one step", "exact posterior", ZOO_TOL["cvi_mean"], [("mean", got.mean, m)])
-    check("cvi Gaussian, one step", "exact posterior", ZOO_TOL["cvi_cov"], [("cov", got.cov, S)])
+    for key, name, value, want in (("cvi_mean", "mean", got.mean, m),
+                                   ("cvi_cov", "cov", got.cov, S)):
+        check("cvi Gaussian, one step", "exact posterior", ZOO_TOL[key], [(name, value, want)])
     for name in ("cvi logistic", "PoissonRegression.fit"):
         got, want = small[name], cpu[name]
         pairs = [("mean", got.mean, want.mean), ("cov", got.cov, want.cov)]
@@ -3872,7 +3885,8 @@ def run_servers(torch, models, ops, serve, device, shapes=SERVE_SHAPES,
             wrong = {b: c for b, c in captured[name].items() if c != 1}
             if wrong:
                 raise SmokeFailure(f"{name}: {kernel} captured {wrong} times, not once a bucket")
-            checks.append({"server": name, "kernel": kernel, "captured_per_bucket": captured[name]})
+            checks.append({"server": name, "kernel": kernel,
+                           "captured_per_bucket": captured[name]})
     return {"checks": checks, "captured": captured, "servers": servers}
 
 
@@ -4186,6 +4200,143 @@ def phase_serve_times(torch, servers: dict, card: str) -> dict:
     return result
 
 
+# -- Phase 24: the boundary ------------------------------------------------------------
+#
+# Each kernel's path fed what a user of the JAX package passes, at the path's
+# full width: float64 numpy arrays (int64 symbols), each a reversed view
+# (negative strides).  LGSSM.smooth(method="fused") at paths_10k's 10,000 x 100
+# (K1); at ladder.hmm, HMM(K, numpy log_pi).smooth(method="fused") (K3),
+# hmm_forward_backward_fused (K2), fit_vmp(method="fused") on int64 symbols
+# (K3 once an iteration) and viterbi; HGF.filter(method="fused") with all five
+# tracks at ladder.hgf (K4); a float64 request of 1,000 replicas to phase 22's
+# K1 server; rhat and ess of the AR(1) chains.  Every result must lie on the
+# card in float32 (viterbi: int32) and equal, bit for bit, the same call fed
+# the float32 (int64) tensors on the card that numpy's rounding gives.
+BOUNDARY_SHAPES = {"lgssm": (R_MAIN, T_MAIN), "hmm": (HMM_R, HMM_T, HMM_K, HMM_M),
+                   "hgf": (HGF_R, HGF_T), "request": 1_000, "chains": (64, 2_000)}
+# Each kernel's launches over the phase's numpy-fed calls (the server replays
+# a captured graph and counts none).
+BOUNDARY_LAUNCHES = {"lgssm_smooth": 1, "hmm_fb": 1, "hmm_fb_counts": 1 + HMM_ITERS,
+                     "hgf_filter": 1}
+BOUNDARY_BUDGET_S = 15.0  # the phase's aim on an H100
+
+
+def boundary_data(shapes=BOUNDARY_SHAPES, seed: int = 70) -> dict:
+    """The phase's inputs as a JAX user holds them: float64 (int64) numpy,
+    each a reversed view of a row-major array."""
+    rng = np.random.default_rng(seed)
+    R, T = shapes["lgssm"]
+    Rh, Th, K, M = shapes["hmm"]
+    A = rng.random((K, K)) + 0.2
+    A /= A.sum(axis=1, keepdims=True)
+    B = rng.random((K, M)) + 0.2
+    B /= B.sum(axis=1, keepdims=True)
+    obs = np.abs(rng.normal(size=(Rh, Th)).cumsum(axis=-1)).astype(np.int64) % M
+    log_lik = np.log(B).T[obs]  # (Rh, Th, K)
+    Ru, Tu = shapes["hgf"]
+    n_chains, n_draws = shapes["chains"]
+    draws = np.empty((n_chains, n_draws))
+    draws[:, 0] = rng.normal(size=n_chains)
+    for t in range(1, n_draws):  # AR(1), phi = 0.5
+        draws[:, t] = 0.5 * draws[:, t - 1] + rng.normal(size=n_chains)
+    return {
+        "y": rng.normal(size=(R, T)).cumsum(axis=-1)[:, ::-1],
+        "log_pi": np.log(np.full(K, 1.0 / K)), "log_A": np.log(A),
+        "log_lik": log_lik[:, ::-1], "lik": np.exp(log_lik)[:, ::-1], "A": A,
+        "pi": np.full(K, 1.0 / K), "obs": obs[:, ::-1], "M": M,
+        "u": np.cumsum(0.1 * rng.normal(size=(Ru, Tu)), axis=-1)[:, ::-1],
+        "request": rng.normal(size=(shapes["request"], T)).cumsum(axis=-1)[:, ::-1],
+        "chains": draws[:, ::-1],
+    }
+
+
+def boundary_calls(models, ops, diag, server, n_iterations: int = HMM_ITERS) -> dict:
+    """``{name: fn(inputs) -> result}``: each path's entry point, called on
+    ``inputs`` (a dict shaped as :func:`boundary_data`'s)."""
+    def hmm(d):
+        return models.HMM(len(d["pi"]), d["log_pi"])
+
+    return {
+        "LGSSM.smooth fused": lambda d: models.LGSSM().smooth(d["y"], method="fused"),
+        "HMM.smooth fused": lambda d: hmm(d).smooth(d["log_lik"], d["log_A"], method="fused"),
+        "hmm_forward_backward_fused": lambda d: ops.hmm_forward_backward_fused(
+            d["lik"], d["A"], d["pi"]),
+        "HMM.fit_vmp fused": lambda d: hmm(d).fit_vmp(
+            d["obs"], d["M"], n_iterations=n_iterations, pooled=True, method="fused"),
+        "HMM.viterbi": lambda d: hmm(d).viterbi(d["log_lik"], d["log_A"]),
+        "HGF.filter fused": lambda d: models.HGF().filter(d["u"], method="fused"),
+        "K1 server": lambda d: server(d["request"]),
+        "rhat": lambda d: diag.rhat(d["chains"]),
+        "ess": lambda d: diag.ess(d["chains"]),
+    }
+
+
+def run_boundary(torch, models, ops, diag, kernels, server, device, data) -> list:
+    """Drive every call of :func:`boundary_calls` on the numpy ``data``,
+    then on the tensors on ``device`` that numpy's float32 (int64) rounding
+    of it gives, and check each result: on ``device``, float32 (the path:
+    int32), equal bit for bit.  Returns the checks, each with the call's
+    launches of K1-K4 and its time (host clock, to a synchronize)."""
+    from cortex_tpu_torch.utils.tree import tree_leaves
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def tensor(a):
+        a = np.ascontiguousarray(a)
+        return torch.from_numpy(a if a.dtype == np.int64 else a.astype(np.float32)).to(device)
+
+    tensors = {k: v if k == "M" else tensor(v) for k, v in data.items()}
+    checks = []
+    for name, call in boundary_calls(models, ops, diag, server).items():
+        sync()
+        before, start = dict(kernels.LAUNCHES), time.perf_counter()
+        got = call(data)
+        sync()
+        ms = (time.perf_counter() - start) * 1e3
+        launches = {k: kernels.LAUNCHES[k] - n for k, n in before.items()
+                    if kernels.LAUNCHES[k] != n}
+        want = call(tensors)
+        got_leaves, want_leaves = tree_leaves(got), tree_leaves(want)
+        dtype = torch.int32 if name == "HMM.viterbi" else torch.float32
+        for i, (g, w) in enumerate(zip(got_leaves, want_leaves)):
+            if g.device.type != torch.device(device).type or g.dtype != dtype:
+                raise SmokeFailure(f"{name}: leaf {i} is {g.dtype} on {g.device}, "
+                                   f"not {dtype} on {device}")
+            if not torch.equal(g, w):
+                raise SmokeFailure(f"{name}: leaf {i} differs from the tensor-fed call by "
+                                   f"{float((g.double() - w.double()).abs().max())}")
+        checks.append({"path": name, "launches": launches, "ms": ms,
+                       "leaves": len(got_leaves), "dtypes": sorted({str(g.dtype)
+                                                                      for g in got_leaves}),
+                       "devices": sorted({str(g.device) for g in got_leaves}),
+                       "against": "the tensor-fed call", "bit_equal": True})
+    return checks
+
+
+def phase_boundary(torch, models, ops, kernels, server, card: str) -> dict:
+    """Phase 24: numpy-fed calls of every kernel's path at full width
+    (:func:`run_boundary`); K1-K4's launches over them, each as
+    ``BOUNDARY_LAUNCHES`` says; the phase's seconds.  Returns the launches."""
+    from cortex_tpu_torch import diag
+
+    data = boundary_data()
+    start = time.perf_counter()
+    _kernel_launches_zero(kernels)
+    checks = run_boundary(torch, models, ops, diag, kernels, server, "cuda", data)
+    launches = {k: sum(c["launches"].get(k, 0) for c in checks) for k in kernels.LAUNCHES}
+    seconds = time.perf_counter() - start
+    for check in checks:
+        emit(phase="boundary", **check)
+    emit(phase="boundary", launches=launches, seconds=seconds, budget_s=BOUNDARY_BUDGET_S,
+         card=card, note="seconds include the tensor-fed comparison calls")
+    if launches != BOUNDARY_LAUNCHES:
+        raise SmokeFailure(f"the numpy-fed calls launched {launches}, "
+                           f"not {BOUNDARY_LAUNCHES}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4215,6 +4366,8 @@ def main() -> None:
     phase_zoo_main_path(torch, models, ops, kernels, device["nvidia_smi"])
     serving = phase_serve_main_path(torch, models, ops, kernels, device["nvidia_smi"])
     phase_serve_times(torch, serving["servers"], device["nvidia_smi"])
+    boundary = phase_boundary(torch, models, ops, kernels, serving["servers"]["lgssm"][0],
+                              device["nvidia_smi"])
     # Each kernel's launches over every run of a main path that launches it;
     # on the serving path, those captured into its graphs (one a bucket, each
     # replayed per request).
@@ -4222,7 +4375,8 @@ def main() -> None:
                 for name, (_, _, kernel, _) in serving["servers"].items()}
     by_phase = {name: {"main path": count, **{
         f"parallel_main_path {world}": run["launches"][name] for world, run in worlds.items()},
-        "serve_main_path, captured into its graphs": captured.get(name, 0)}
+        "serve_main_path, captured into its graphs": captured.get(name, 0),
+        "boundary": boundary[name]}
         for name, count in launches.items()}
     hmm_source = "cortex_tpu_torch/csrc/hmm_forward_backward.cu"
     print(json.dumps({"kernels": [

@@ -4,7 +4,8 @@ The file layout is the JAX package's: one ``leaf_{i}`` entry a leaf, in the
 order of :func:`~cortex_tpu_torch.utils.tree.tree_flatten`, and the
 structure's text as ``__treedef_repr__``.  numpy has no bfloat16, so the port
 adds ``__dtypes__``, each leaf's dtype; a bfloat16 leaf is stored as its raw
-16 bits and restored bit for bit.
+16 bits and restored bit for bit.  A file the JAX package wrote has no
+``__dtypes__`` (and no bfloat16 leaf): each leaf takes its numpy dtype.
 """
 
 from __future__ import annotations
@@ -85,7 +86,8 @@ def restore(path: str, like: Any) -> Any:
                 "Checkpoint structure mismatch:\n"
                 f"  saved:    {saved_repr}\n  expected: {treedef_str(treedef)}"
             )
-        dtypes = json.loads(_text(data["__dtypes__"]))
+        dtypes = (json.loads(_text(data["__dtypes__"])) if "__dtypes__" in data.files
+                  else [""] * len(leaves_like))
         leaves = [_from_numpy(data[f"leaf_{i}"], dtypes[i], leaf)
                   for i, leaf in enumerate(leaves_like)]
     return tree_unflatten(treedef, leaves)

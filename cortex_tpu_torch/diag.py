@@ -19,7 +19,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from .utils.tree import keystr, tree_flatten_with_path
+from .utils.tree import as_tensors, keystr, tree_flatten_with_path
 
 __all__ = ["DivergenceError", "check_finite", "ConvergenceMonitor", "rhat", "ess"]
 
@@ -107,8 +107,9 @@ def rhat(chains: torch.Tensor) -> torch.Tensor:
     indicate the chains agree; > 1.01 is the conventional warning level.
     Each chain is split in half (catching within-chain drift), then
     R̂² = (W·(n−1)/n + B/n) / W with B/W the between/within variances.
+    An array that is not a tensor becomes float32 on the card.
     """
-    x = torch.as_tensor(chains)
+    x, = as_tensors(chains)
     half = x.shape[1] // 2
     x = torch.cat([x[:, :half], x[:, half : 2 * half]], dim=0)  # (2M, half, ...)
     chain_means = torch.mean(x, dim=1)
@@ -125,9 +126,9 @@ def ess(chains: torch.Tensor, max_lag: int = 200) -> torch.Tensor:
 
     ``chains``: ``(M, N)`` scalar draws (apply per quantity); returns a
     scalar ESS ≤ M·N.  IID draws give ≈ M·N; an AR(1) chain with
-    coefficient φ gives ≈ M·N·(1−φ)/(1+φ).
+    coefficient φ gives ≈ M·N·(1−φ)/(1+φ).  Input as :func:`rhat` takes it.
     """
-    x = torch.as_tensor(chains)
+    x, = as_tensors(chains)
     m, n = x.shape
     max_lag = min(max_lag, n - 1)
     xc = x - torch.mean(x, dim=1, keepdim=True)

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.special import digamma, gammaln
 
-from ..utils.tree import as_float32_tensor
+from ..utils.tree import as_float32_tensor, input_device
 
 __all__ = ["Beta", "Gamma", "Bernoulli", "Categorical", "Dirichlet"]
 
@@ -43,9 +43,7 @@ def _softplus(x):
 
 
 def _new_tensor(x, device):
-    if device is None and not isinstance(x, torch.Tensor):
-        device = "cuda"
-    return as_float32_tensor(x, device)
+    return as_float32_tensor(x, input_device(x, device=device))
 
 
 def _shape(shape, batch):
@@ -322,12 +320,12 @@ class Categorical:
         )
 
     def sample(self, key: torch.Generator, shape: Tuple[int, ...] = ()) -> torch.Tensor:
-        """Class indices of shape ``shape + logits.shape[:-1]``, by the
-        Gumbel-max trick."""
+        """Class indices of shape ``shape + logits.shape[:-1]``, int32 as JAX
+        returns them, by the Gumbel-max trick."""
         u = torch.rand(_shape(shape, self.logits.shape), generator=key,
                        dtype=self.logits.dtype, device=self.logits.device)
         gumbel = -torch.log(-torch.log(u))
-        return torch.argmax(self.logits + gumbel, dim=-1)
+        return torch.argmax(self.logits + gumbel, dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from ..utils.tree import as_float32_tensor
+from ..utils.tree import as_float32_tensor, input_device
 
 __all__ = [
     "Gaussian",
@@ -34,16 +34,8 @@ __all__ = [
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def _device(*xs, device=None):
-    """``device`` if named, else that of the first tensor among ``xs``, else
-    the card."""
-    if device is not None:
-        return device
-    return next((x.device for x in xs if isinstance(x, torch.Tensor)), "cuda")
-
-
 def _tensors(*xs, device=None):
-    dev = _device(*xs, device=device)
+    dev = input_device(*xs, device=device)
     return tuple(as_float32_tensor(x, dev) for x in xs)
 
 

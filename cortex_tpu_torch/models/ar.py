@@ -18,9 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..dists.gaussian import _device
 from ..ops.chains_mv import MvChainMarginals, mv_lgssm_smooth
-from ..utils.tree import as_float32_tensor
+from ..utils.tree import as_float32_tensor, input_device
 from .glm import NIGPosterior, nig_fit
 
 __all__ = ["ARPosterior", "BayesianAR", "companion_matrix", "latent_ar_smooth"]
@@ -33,7 +32,7 @@ ARPosterior = NIGPosterior
 def companion_matrix(coeffs) -> torch.Tensor:
     """``(..., p) -> (..., p, p)`` companion form: first row = coefficients,
     subdiagonal identity.  ``x_t = [w·lags, shift]``."""
-    coeffs = as_float32_tensor(coeffs, _device(coeffs))
+    coeffs = as_float32_tensor(coeffs, input_device(coeffs))
     p = coeffs.shape[-1]
     lower = torch.eye(p, dtype=coeffs.dtype, device=coeffs.device)[:-1]
     lower = lower.expand(tuple(coeffs.shape[:-1]) + (p - 1, p))
@@ -62,7 +61,7 @@ class BayesianAR:
     def fit(self, y) -> ARPosterior:
         """Exact posterior from a ``(..., T)`` series (leading axes = replica
         series, each fit independently in one batched solve)."""
-        y = as_float32_tensor(y, _device(y))
+        y = as_float32_tensor(y, input_device(y))
         X, t = _lag_matrix(y, self.p)
         return nig_fit(X, t, self.prior_scale, self.a0, self.b0)
 
@@ -70,7 +69,7 @@ class BayesianAR:
                 ) -> torch.Tensor:
         """Posterior-mean forecast ``(..., horizon)`` by iterating the
         companion map at the posterior coefficient mean."""
-        y = as_float32_tensor(y, _device(y))
+        y = as_float32_tensor(y, input_device(y))
         post = posterior if posterior is not None else self.fit(y)
         A = companion_matrix(post.mean)
         state = torch.flip(y[..., -self.p :], dims=[-1])  # most recent first
@@ -97,7 +96,7 @@ def latent_ar_smooth(
     companion-form LGSSM and runs the time-parallel smoother; the returned
     ``mean[..., t, 0]`` / ``cov[..., t, 0, 0]`` are the marginals of ``x_t``.
     """
-    dev = _device(y, coeffs)
+    dev = input_device(y, coeffs)
     y = as_float32_tensor(y, dev)
     coeffs = as_float32_tensor(coeffs, dev)
     p = coeffs.shape[-1]

@@ -27,8 +27,7 @@ from typing import NamedTuple, Union
 
 import torch
 
-from ..dists.gaussian import _device
-from ..utils.tree import as_float32_tensor
+from ..utils.tree import as_float32_tensor, input_device
 
 __all__ = ["BOCPD", "GaussianNIG", "BernoulliBeta", "BOCPDResult"]
 
@@ -130,7 +129,7 @@ class BOCPD:
 
     def filter(self, y) -> BOCPDResult:
         """Filter ``y`` of shape ``(..., T)``; returns run-length posteriors."""
-        y = as_float32_tensor(y, _device(y))
+        y = as_float32_tensor(y, input_device(y))
         dtype = torch.promote_types(y.dtype, torch.float32)
         y = y.to(dtype)
         batch_shape, T, R = tuple(y.shape[:-1]), y.shape[-1], self.r_max
@@ -173,5 +172,5 @@ class BOCPD:
             run_length_logprobs=logws,
             changepoint_prob=torch.exp(logws[..., 0]) + torch.exp(logws[..., 1]),
             log_evidence=log_Z,
-            map_run_length=torch.argmax(logws, dim=-1),
+            map_run_length=torch.argmax(logws, dim=-1).to(torch.int32),
         )

@@ -20,9 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..dists.gaussian import _device
 from ..ops.ep import EPResult, ep_linear_model, gauss_hermite_tilted, probit_tilted_moments
-from ..utils.tree import as_float32_tensor
+from ..utils.tree import as_float32_tensor, input_device
 from .glm import _latent
 
 __all__ = ["EPClassifier", "EPClassifierPosterior"]
@@ -72,7 +71,7 @@ class EPClassifier:
 
     def fit(self, X, y) -> EPClassifierPosterior:
         """``X``: ``(n, d)``; ``y``: ``(n,)`` in {-1, +1}."""
-        dev = _device(X, y)
+        dev = input_device(X, y)
         X = torch.atleast_2d(as_float32_tensor(X, dev))
         y = as_float32_tensor(y, dev)
         if self.likelihood == "probit":

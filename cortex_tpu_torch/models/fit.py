@@ -8,7 +8,8 @@ its prediction-error log evidence.  ``optax.adam`` becomes ``torch.optim.Adam``
 with the same learning rate, betas (0.9, 0.999) and eps 1e-8, and the JAX
 ``lax.scan`` over optimizer steps a Python loop.  Gradients flow through the
 filters' loops over T; the HGF kernel has no backward, so the HGF fit runs
-the scan.
+the scan.  Observations and initial parameters that are not tensors become
+float32 tensors on the device of the tensors among them, or on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from ..ops.chains import scalar_kalman_update
 from ..ops.chains_mv import mv_lgssm_log_evidence
+from ..utils.tree import as_tensors
 from .hgf import HGF
 
 __all__ = [
@@ -52,6 +54,17 @@ class LGSSMParams(NamedTuple):
 
 def _scalar(value, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _inputs(y, init):
+    """``y`` and the entries of ``init`` as the fits take them: arrays made
+    tensors by :func:`~cortex_tpu_torch.utils.tree.as_tensors`, numbers made
+    scalars of ``y``'s dtype and device."""
+    y, *entries = as_tensors(y, *(init or ()))
+    if init is None:
+        return y, None
+    return y, type(init)(*(e if isinstance(e, torch.Tensor) else _scalar(e, y)
+                           for e in entries))
 
 
 def _default_init(y: torch.Tensor) -> LGSSMParams:
@@ -109,6 +122,7 @@ def fit_lgssm_ml(
     ``y``: ``(..., T)`` observations (replicas pooled into the likelihood).
     Returns the fitted params and the loss trace.
     """
+    y, init = _inputs(y, init)
     init = _default_init(y) if init is None else init
     params, losses = _adam(
         lambda *p: _neg_log_evidence(LGSSMParams(*p), y, prior), init, n_steps, learning_rate
@@ -131,6 +145,7 @@ def fit_lgssm_em(
     log_evidence_trace)``, where entry ``i`` is the pooled log evidence under
     the params entering iteration ``i`` (so it is non-decreasing).
     """
+    y, init = _inputs(y, init)
     yT = y.movedim(-1, 0)  # (T, ...replicas)
     n_obs = yT.numel()
     n_trans = n_obs - yT[0].numel()
@@ -186,6 +201,7 @@ def fit_hgf_ml(
     """Fit the continuous HGF's volatility parameters (ω, θ) by maximizing
     the one-step-ahead predictive likelihood, by Adam through the filtering
     scan.  Returns ``((omega, theta), losses)``."""
+    u, = as_tensors(u)
 
     def nll(omega, log_theta):
         model = HGF(kappa=kappa, omega=omega, theta=torch.exp(log_theta), pi_u=pi_u)
@@ -233,6 +249,8 @@ def fit_mv_lgssm_ml(
     over the replica series of ``y`` ``(..., T, m)``, on its device.  Returns
     the fitted unconstrained params and the loss trace ``(n_steps,)``; read
     ``params.A/Q/R`` for the constrained matrices."""
+    y, H, *entries = as_tensors(y, H, *(init or ()))
+    init = MvLGSSMParams(*entries) if entries else None
     opts = dict(dtype=y.dtype, device=y.device)
     H = torch.as_tensor(H, **opts)
     if init is None:

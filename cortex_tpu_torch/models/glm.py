@@ -21,9 +21,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..dists.gaussian import _device
 from ..ops.ep import EPResult, ep_linear_model, gauss_hermite_tilted
-from ..utils.tree import as_float32_tensor
+from ..utils.tree import as_float32_tensor, input_device
 
 __all__ = [
     "BayesianLinearRegression",
@@ -63,7 +62,7 @@ def nig_fit(X, t, prior_scale: float = 100.0, a0: float = 2.0, b0: float = 1.0) 
     ``X``: ``(..., n, d)``; ``t``: ``(..., n)``.  Batched over leading axes
     (one inverse per replica problem).
     """
-    dev = _device(X, t)
+    dev = input_device(X, t)
     X, t = as_float32_tensor(X, dev), as_float32_tensor(t, dev)
     d = X.shape[-1]
     n = t.shape[-1]
@@ -146,7 +145,7 @@ class PoissonRegression:
 
     def fit(self, X, y) -> PoissonPosterior:
         """``X``: ``(n, d)``; ``y``: ``(n,)`` non-negative counts."""
-        dev = _device(X, y)
+        dev = input_device(X, y)
         X = torch.atleast_2d(as_float32_tensor(X, dev))
         y = as_float32_tensor(y, dev).to(X.dtype)
 

@@ -27,6 +27,7 @@ import torch
 from torch.special import digamma, gammaln
 
 from ..ops.chains import _full_float32_matmul
+from ..utils.tree import as_tensors
 
 __all__ = ["GMM", "GMMPosterior", "GMMResult"]
 
@@ -105,9 +106,12 @@ class GMM:
         init_means: Optional[torch.Tensor] = None,
     ) -> GMMResult:
         """Run structured VMP on ``x`` of shape ``(..., N, D)``; leading axes
-        are independent replicas.  Runs on the device of ``x``.  Without
-        ``init_means`` the components start at K distinct data points
-        (:func:`initial_means` with ``key``)."""
+        are independent replicas.  Runs on the device of ``x`` (arrays that
+        are not tensors become float32 on the device of the tensors among
+        ``x`` and ``init_means``, or on the card).  Without ``init_means`` the
+        components start at K distinct data points (:func:`initial_means` with
+        ``key``)."""
+        x, init_means = as_tensors(x, init_means)
         K = self.K
         N, D = x.shape[-2], x.shape[-1]
         batch = tuple(x.shape[:-2])

@@ -21,6 +21,7 @@ from torch.special import digamma, gammaln, multigammaln
 
 from ..dists.gaussian import _spd_inv, _spd_logdet
 from ..ops.chains import _full_float32_matmul
+from ..utils.tree import as_tensors
 from .gmm import _trace, initial_means
 
 __all__ = ["GMMFull", "GMMFullPosterior", "GMMFullResult"]
@@ -100,7 +101,9 @@ class GMMFull:
         init_means: Optional[torch.Tensor] = None,
     ) -> GMMFullResult:
         """Run structured VMP on ``x`` of shape ``(..., N, D)`` on its
-        device; initialization as :meth:`cortex_tpu_torch.models.GMM.fit`."""
+        device; inputs and initialization as
+        :meth:`cortex_tpu_torch.models.GMM.fit`."""
+        x, init_means = as_tensors(x, init_means)
         K = self.K
         N, D = x.shape[-2], x.shape[-1]
         batch = tuple(x.shape[:-2])

@@ -19,8 +19,8 @@ from typing import Callable, NamedTuple, Tuple, Union
 
 import torch
 
-from ..dists.gaussian import _cholesky_nan, _device
-from ..utils.tree import as_float32_tensor
+from ..dists.gaussian import _cholesky_nan
+from ..utils.tree import as_float32_tensor, input_device
 from .fit import _adam
 
 __all__ = [
@@ -61,7 +61,7 @@ _KERNELS = {"rbf": rbf_kernel, "matern32": matern32_kernel, "matern52": matern52
 
 
 def _points(X, device=None) -> torch.Tensor:
-    return torch.atleast_2d(as_float32_tensor(X, _device(X, device=device)))
+    return torch.atleast_2d(as_float32_tensor(X, input_device(X, device=device)))
 
 
 def _solve_lower(L, B):

@@ -19,8 +19,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..dists.gaussian import _device, _spd_solve_logdet
-from ..utils.tree import as_float32_tensor
+from ..dists.gaussian import _spd_solve_logdet
+from ..utils.tree import as_float32_tensor, input_device
 from .fit import _adam
 
 __all__ = ["GPSSM", "GPSSMPosterior", "fit_gpssm_ml", "matern_state_space"]
@@ -33,7 +33,7 @@ def matern_state_space(kernel: str, lengthscale, variance, dts):
     ``P_inf: (d, d)`` — all analytic (``A = expm(F dt)`` in closed form;
     ``Q = P_inf − A P_inf Aᵀ`` by stationarity).
     """
-    dts = as_float32_tensor(dts, _device(dts))
+    dts = as_float32_tensor(dts, input_device(dts))
     ell = torch.as_tensor(lengthscale, dtype=dts.dtype, device=dts.device)
     var = torch.as_tensor(variance, dtype=dts.dtype, device=dts.device)
     zero = torch.zeros((), dtype=dts.dtype, device=dts.device)
@@ -106,7 +106,7 @@ class GPSSM:
     def posterior(self, t, y) -> GPSSMPosterior:
         """Exact GP posterior at the training inputs + log evidence,
         via Kalman filter + RTS smoother over the Matérn SDE."""
-        dev = _device(t, y)
+        dev = input_device(t, y)
         t, y = as_float32_tensor(t, dev), as_float32_tensor(y, dev)
         _check_sorted(t, "GPSSM inputs t must be sorted ascending: negative gaps make "
                          "exp(-λ·dt) blow up and the chain filter silently wrong.")
@@ -166,7 +166,7 @@ def fit_gpssm_ml(
 
     Returns the fitted model and the per-iteration NLL trace.
     """
-    dev = _device(t, y)
+    dev = input_device(t, y)
     t, y = as_float32_tensor(t, dev), as_float32_tensor(y, dev)
     _check_sorted(t, "fit_gpssm_ml requires t sorted ascending")
     if init is None:

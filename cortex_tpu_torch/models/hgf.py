@@ -14,6 +14,8 @@ what streams: :meth:`HGF.step` consumes one observation, :meth:`HGF.filter`
 runs a whole series, and :func:`cortex_tpu_torch.parallel.stream_filter`
 feeds chunks from the host while the card computes.  Every update is
 elementwise: replicas batch along leading axes with one state each.
+Observations and states that are not tensors become float32 tensors on the
+device of the tensors among them, or on the card; tensors are kept as given.
 """
 
 from __future__ import annotations
@@ -25,10 +27,20 @@ import torch
 from torch import nn
 
 from ..ops.kernels_hgf import ALL_TRACKS, PARAMS, hgf_filter_fused, hgf_update
+from ..utils.tree import as_tensors
 
 __all__ = ["HGF", "HGFState", "HGFTrajectory"]
 
 _METHODS = ("scan", "fused")
+
+
+def _inputs(u, state):
+    """``u`` and ``state``'s entries as :func:`~cortex_tpu_torch.utils.tree.as_tensors`
+    takes them, all on one device."""
+    u, *entries = as_tensors(u, *(state or ()))
+    if state is None:
+        return u, None
+    return u, (state._make(entries) if hasattr(state, "_make") else tuple(entries))
 
 
 def _number_or_tensor(value):
@@ -106,6 +118,7 @@ class HGF(nn.Module):
     def step(self, state: HGFState, u: torch.Tensor) -> Tuple[HGFState, torch.Tensor]:
         """One streaming update: observation(s) ``u`` → new state and the
         volatility prediction error ``delta1``."""
+        u, state = _inputs(u, state)
         *new_state, delta1 = hgf_update(*state, u, **self.params())
         return HGFState(*new_state), delta1
 
@@ -113,6 +126,7 @@ class HGF(nn.Module):
         """One-step-ahead predictive log likelihood Σ_t log N(u_t; μ̂1_t,
         1/π̂1_t + 1/π_u), shape ``u.shape[:-1]``: the fitting objective of
         HGF parameter estimation, differentiable in tensor parameters."""
+        u, state = _inputs(u, state)
         uT = u.movedim(-1, 0)
         if state is None:
             state = self.init_state(uT.shape[1:], u.dtype, u.device)
@@ -154,6 +168,7 @@ class HGF(nn.Module):
         if method not in _METHODS:
             raise ValueError(f"Unknown method: {method!r} (expected one of {_METHODS})")
         tracks = ALL_TRACKS if tracks is None else tuple(tracks)
+        u, state = _inputs(u, state)
 
         def to_traj(values):
             by_name = dict(zip(tracks, values))

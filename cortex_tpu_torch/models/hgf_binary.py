@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from .hgf import _number_or_tensor
+from .hgf import _inputs, _number_or_tensor
 
 __all__ = ["BinaryHGF", "BinaryHGFState", "BinaryHGFTrajectory"]
 
@@ -73,6 +73,7 @@ class BinaryHGF(nn.Module):
         self, state: BinaryHGFState, u: torch.Tensor
     ) -> Tuple[BinaryHGFState, torch.Tensor]:
         """One trial: binary observation(s) ``u`` → new state, predicted p."""
+        u, state = _inputs(u, state)
         mu2, pi2, mu3, pi3 = state
 
         # Level-1 prediction (before seeing u).
@@ -102,8 +103,11 @@ class BinaryHGF(nn.Module):
     def filter(
         self, u: torch.Tensor, state: Optional[BinaryHGFState] = None
     ) -> Tuple[BinaryHGFState, BinaryHGFTrajectory]:
-        """Filter a trial series ``u`` of shape ``(..., T)``, as float32."""
-        u = torch.as_tensor(u, dtype=torch.float32)
+        """Filter a trial series ``u`` of shape ``(..., T)``, as float32 (an
+        array that is not a tensor on the device of ``state``, or on the
+        card)."""
+        u, state = _inputs(u, state)
+        u = u.to(torch.float32)
         uT = u.movedim(-1, 0)
         if state is None:
             state = self.init_state(uT.shape[1:], u.dtype, u.device)

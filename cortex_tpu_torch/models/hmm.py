@@ -23,6 +23,7 @@ from ..dists import Dirichlet
 from ..ops.chains import _full_float32_matmul
 from ..ops.hmm import HMMPosterior, hmm_forward_backward, hmm_viterbi
 from ..ops.kernels_hmm import FLOOR, hmm_forward_backward_counts_fused
+from ..utils.tree import as_float32_tensor, as_tensors, input_device
 
 __all__ = ["HMM", "HMMVMPState", "HMMVMPResult"]
 
@@ -61,7 +62,10 @@ class HMMVMPResult(NamedTuple):
 class HMM(nn.Module):
     """Discrete HMM with ``K`` hidden states and initial log-distribution
     ``log_pi`` (K,), held as a buffer: the model computes on the device it
-    was moved to, which must be that of its inputs.
+    was moved to, which must be that of its tensor inputs.  A ``log_pi`` that
+    is not a tensor becomes float32 on the card; inputs that are not tensors
+    become float32 (``obs``: int32) on the device of the tensors among them,
+    else on the buffer's.
 
     Emissions are either fixed (pass per-step log-likelihoods to
     :meth:`smooth`) or categorical over M symbols with a Dirichlet posterior
@@ -71,7 +75,7 @@ class HMM(nn.Module):
     def __init__(self, K: int, log_pi: torch.Tensor):
         super().__init__()
         self.K = int(K)
-        log_pi = torch.as_tensor(log_pi)
+        log_pi = as_float32_tensor(log_pi, input_device(log_pi))
         if tuple(log_pi.shape) != (self.K,):
             raise ValueError(f"log_pi must have shape ({self.K},), got {tuple(log_pi.shape)}")
         self.register_buffer("log_pi", log_pi)
@@ -95,6 +99,7 @@ class HMM(nn.Module):
         kernel's linear-space floors (see :mod:`~cortex_tpu_torch.ops.kernels_hmm`).
         """
         _check_method(method)
+        log_lik, log_A = self._inputs(log_lik, log_A)
         if method == "fused":
             if log_lik.dim() != 3:
                 raise ValueError("method='fused' requires log_lik of shape (R, T, K)")
@@ -107,7 +112,13 @@ class HMM(nn.Module):
         return hmm_forward_backward(log_lik, log_A, self.log_pi)
 
     def viterbi(self, log_lik: torch.Tensor, log_A: torch.Tensor) -> torch.Tensor:
-        return hmm_viterbi(log_lik, log_A, self.log_pi)
+        """The MAP state path, ``(..., T)`` int32 (:func:`hmm_viterbi`)."""
+        return hmm_viterbi(*self._inputs(log_lik, log_A), self.log_pi)
+
+    def _inputs(self, *xs):
+        """``xs`` as :func:`~cortex_tpu_torch.utils.tree.as_tensors` takes them,
+        on the device of ``log_pi`` where no tensor among them names one."""
+        return as_tensors(*xs, default=self.log_pi.device)
 
     # -- Dirichlet VMP over transitions and categorical emissions -------------
     def fit_vmp(
@@ -139,6 +150,8 @@ class HMM(nn.Module):
         the log-space scan.
         """
         _check_method(method)
+        obs, *init = self._inputs(obs, *(init_state or ()))
+        init_state = HMMVMPState(*init) if init else None
         if method == "fused" and not (pooled and obs.dim() == 2):
             raise ValueError("method='fused' requires pooled=True and obs of shape (R, T)")
         if n_iterations < 1:

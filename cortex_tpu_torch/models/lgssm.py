@@ -7,9 +7,13 @@ identical marginals:
 
 - ``method="scan"``: sequential in time, batched over replicas,
 - ``method="matmul"``: the smoother as one affine map (dense data only),
-- ``method="assoc"``: time-parallel associative scan, O(log T) depth.
+- ``method="assoc"``: time-parallel associative scan, O(log T) depth,
+- ``method="fused"``: the fused CUDA sweep,
+  :func:`cortex_tpu_torch.ops.lgssm_smooth_fused` (dense ``(R, T)`` float32
+  data, no prior: the kernel's contract).
 
-The fused CUDA sweep is the op :func:`cortex_tpu_torch.ops.lgssm_smooth_fused`.
+Observations that are not tensors become float32 tensors on the device of
+the tensors among the inputs, or on the card; tensors are kept as given.
 """
 
 from __future__ import annotations
@@ -21,18 +25,27 @@ from torch import nn
 
 from ..ops.chains import (
     ChainMarginals,
+    _inputs,
     lgssm_smooth_assoc,
     lgssm_smooth_matmul,
     lgssm_smooth_scan,
     scalar_kalman_update,
 )
+from ..ops.kernels import lgssm_smooth_fused
 
 __all__ = ["LGSSM"]
+
+def _fused(y, A, Q, H, R, prior):
+    if prior is not None:
+        raise ValueError("method='fused' takes no prior (the kernel's contract)")
+    return lgssm_smooth_fused(y, A, Q, H, R)
+
 
 _SMOOTHERS = {
     "scan": lgssm_smooth_scan,
     "assoc": lgssm_smooth_assoc,
     "matmul": lgssm_smooth_matmul,
+    "fused": _fused,
 }
 
 
@@ -66,6 +79,8 @@ class LGSSM(nn.Module):
 
         NaN entries in ``y`` are missing observations (``"scan"`` and
         ``"assoc"``); a missing ``y[..., 0]`` needs an explicit ``prior``.
+        ``"fused"`` launches K1 on a CUDA ``y`` of shape ``(R, T)`` (its
+        plain version on a CPU one), with no prior.
         """
         if method not in _SMOOTHERS:
             raise ValueError(f"Unknown method: {method!r}")
@@ -78,6 +93,7 @@ class LGSSM(nn.Module):
     ) -> ChainMarginals:
         """Filtered beliefs p(x_t | y_{1:t}) by a forward pass.  NaN
         observations carry zero information (a pure prediction step)."""
+        y, prior = _inputs(y, prior)
         observed = ~torch.isnan(y)
         yT = torch.where(observed, y, 0.0).movedim(-1, 0)
         obsT = observed.movedim(-1, 0)
@@ -109,6 +125,7 @@ class LGSSM(nn.Module):
         """log p(y_{1:T}) by the prediction-error decomposition, shape
         ``y.shape[:-1]``.  NaN observations are marginalized out: they add no
         log-likelihood and skip the measurement update."""
+        y, prior = _inputs(y, prior)
         observed = ~torch.isnan(y)
         yT = torch.where(observed, y, 0.0).movedim(-1, 0)
         obsT = observed.movedim(-1, 0)

@@ -17,6 +17,7 @@ import torch
 from ..dists.gaussian import _cholesky_nan
 from ..ops.chains_mv import (
     MvChainMarginals,
+    _observations,
     mv_lgssm_filter,
     mv_lgssm_log_evidence,
     mv_lgssm_smooth,
@@ -80,7 +81,9 @@ class MvLGSSM:
         return "blocked" if self.dim <= 8 else "scan"
 
     def _args(self, y):
-        return (y, self.A, self.Q, self.H, self.R, (self.m0, self.P0))
+        """The chains' arguments; ``y`` that is not a tensor becomes float32
+        on the card (the model holds numbers, not tensors)."""
+        return (_observations(y), self.A, self.Q, self.H, self.R, (self.m0, self.P0))
 
     def smooth(
         self, y: torch.Tensor, method: str = "auto", missing: str = "auto"
@@ -116,10 +119,10 @@ class MvLGSSM:
                 "method='scan' masks NaNs per component; missing='step' applies to "
                 "'blocked' and 'assoc' only"
             )
-        if missing == "auto":
-            missing = "component" if _has_partial_missing(y) else "step"
-        component = missing == "component"
         args = self._args(y)
+        if missing == "auto":
+            missing = "component" if _has_partial_missing(args[0]) else "step"
+        component = missing == "component"
         if method == "assoc":
             return mv_lgssm_smooth(*args, component_missing=component)
         if method == "blocked":
@@ -162,7 +165,8 @@ class MvLGSSM:
         d, m = A.shape[0], H.shape[0]
         batch = tuple(batch_shape)
         Lq, Lr, L0 = (_cholesky_nan(M) for M in (Q, R, P0))
-        x = m0 + torch.einsum("ij,...j->...i", L0, torch.randn(batch + (d,), generator=key, **opts))
+        x0 = torch.randn(batch + (d,), generator=key, **opts)
+        x = m0 + torch.einsum("ij,...j->...i", L0, x0)
         wn = torch.randn((T,) + batch + (d,), generator=key, **opts)
         vn = torch.randn((T,) + batch + (m,), generator=key, **opts)
         xs = []

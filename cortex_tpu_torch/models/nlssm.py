@@ -22,6 +22,7 @@ from ..ops.nonlinear import (
     ukf_filter,
     ukf_smooth,
 )
+from ..utils.tree import to_tensor
 
 __all__ = ["NonlinearSSM", "NLSSMBeliefs"]
 
@@ -82,7 +83,7 @@ class NonlinearSSM:
         ``generator`` on its device (the model's arrays are taken there)."""
         dev = generator.device
         dtype = self.Q.dtype if isinstance(self.Q, torch.Tensor) else torch.float32
-        Q, R, m0, P0 = (torch.as_tensor(a, dtype=dtype, device=dev)
+        Q, R, m0, P0 = (to_tensor(a, dtype=dtype, device=dev)
                         for a in (self.Q, self.R, self.m0, self.P0))
         d, m = Q.shape[-1], R.shape[-1]
         LQ, LR, LP0 = (torch.linalg.cholesky(a) for a in (Q, R, P0))

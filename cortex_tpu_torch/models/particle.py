@@ -18,6 +18,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.tree import as_tensors
+
 __all__ = [
     "ParticleFilterResult",
     "particle_filter",
@@ -36,7 +38,14 @@ class ParticleFilterResult(NamedTuple):
 
 def systematic_indices(log_weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Systematic resampling of ``log_weights (..., N)`` at the offsets ``u``
-    (shape ``log_weights.shape[:-1]``, in [0, 1)): int64 indices ``(..., N)``.
+    (shape ``log_weights.shape[:-1]``, in [0, 1)): int32 indices ``(..., N)``,
+    as JAX returns them.  Arrays that are not tensors become float32 on the
+    device of the tensors among them, or on the card."""
+    return _indices(*as_tensors(log_weights, u)).to(torch.int32)
+
+
+def _indices(log_weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """:func:`systematic_indices` as int64, the type gather and scatter take.
 
     The stratified positions ``(j + u)/N`` are sorted, so particle ``i``'s
     children occupy the output slots ``[C_{i-1}, C_i)`` with ``C_i =
@@ -56,10 +65,15 @@ def systematic_indices(log_weights: torch.Tensor, u: torch.Tensor) -> torch.Tens
 
 def systematic_resample(generator: torch.Generator, log_weights: torch.Tensor) -> torch.Tensor:
     """Systematic (low-variance) resampling: one uniform offset per replica
-    from ``generator``, then :func:`systematic_indices`."""
+    from ``generator``, then :func:`systematic_indices` (int32 indices)."""
+    return _resample(generator, *as_tensors(log_weights)).to(torch.int32)
+
+
+def _resample(generator: torch.Generator, log_weights: torch.Tensor) -> torch.Tensor:
+    """:func:`systematic_resample` as int64, the type gather takes."""
     u = torch.rand(log_weights.shape[:-1], generator=generator, device=log_weights.device,
                    dtype=log_weights.dtype)
-    return systematic_indices(log_weights, u)
+    return _indices(log_weights, u)
 
 
 def _squeeze_tail(x: torch.Tensor, batch_ndim: int) -> torch.Tensor:
@@ -86,7 +100,10 @@ def particle_filter(
     effective sample size drops below ``ess_threshold * N``.  Returns per-step
     moments, the log-evidence estimate and the ESS trace, each replica's as
     the JAX package returns one sequence's (size-1 state axes squeezed).
+    Arrays that are not tensors become float32 on the device of the tensors
+    among ``y`` and ``init_particles``, else on the generator's.
     """
+    y, init_particles = as_tensors(y, init_particles, default=generator.device)
     nb = batch_ndim
     batch, n = init_particles.shape[:nb], init_particles.shape[nb]
     state_ndim = init_particles.dim() - nb - 1
@@ -113,7 +130,7 @@ def particle_filter(
         variances.append(torch.sum(w[..., None] * (flat - mean.unsqueeze(nb)) ** 2, dim=nb))
 
         # Adaptive systematic resampling.
-        idx = systematic_resample(generator, log_w)
+        idx = _resample(generator, log_w)
         do_resample = esses[-1] < n_thresh
         idx = idx.reshape(idx.shape + (1,) * state_ndim).expand(particles.shape)
         particles = torch.where(

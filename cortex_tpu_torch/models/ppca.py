@@ -26,8 +26,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..dists.gaussian import _cholesky_nan, _device
-from ..utils.tree import as_float32_tensor
+from ..dists.gaussian import _cholesky_nan
+from ..utils.tree import as_float32_tensor, input_device
 from .fit import _trace
 
 __all__ = ["PPCA", "PPCAResult", "FactorAnalysis", "FAResult", "ppca_closed_form"]
@@ -50,7 +50,7 @@ class FAResult(NamedTuple):
 
 
 def _data(Y) -> torch.Tensor:
-    return as_float32_tensor(Y, _device(Y))
+    return as_float32_tensor(Y, input_device(Y))
 
 
 def _check_components(q: int, d: int, extra: str = "") -> None:
@@ -95,7 +95,8 @@ def ppca_closed_form(Y, n_components: int) -> PPCAResult:
     U_q = torch.flip(evecs[:, -q:], dims=[1])
     sigma2 = evals[: d - q].sum() / (d - q)
     W = U_q * torch.sqrt(torch.clamp(lam_q - sigma2, min=0.0))
-    return PPCAResult(W=W, sigma2=sigma2, mu=mu, log_likelihood=_marginal_loglik_iso(Yc, W, sigma2))
+    return PPCAResult(W=W, sigma2=sigma2, mu=mu,
+                      log_likelihood=_marginal_loglik_iso(Yc, W, sigma2))
 
 
 def _range_finder(Yc, q: int, key: Optional[torch.Generator]):

@@ -23,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.chains import scalar_kalman_update
-from .particle import systematic_resample
+from ..utils.tree import as_tensors
+from .particle import _resample
 from .slds import SLDS, _sample_categorical
 
 __all__ = ["RBPFResult", "rbpf_filter"]
@@ -51,7 +52,9 @@ def rbpf_filter(
 ) -> RBPFResult:
     """Filter the sequences ``y`` of shape ``(..., T)`` (leading replica axes),
     drawing from ``generator``.  Resampling triggers per replica when its ESS
-    drops below ``ess_threshold * n_particles``."""
+    drops below ``ess_threshold * n_particles``.  A ``y`` that is not a tensor
+    becomes float32 on the model's device."""
+    y, = as_tensors(y, default=model.Pi.device)
     Pi, A, Q, H, R = model.Pi, model.A, model.Q, model.H, model.R
     K, N = model.K, n_particles
     batch = tuple(y.shape[:-1])
@@ -85,7 +88,7 @@ def rbpf_filter(
         logZ = logZ + torch.logsumexp(logw_new, dim=-1) - torch.logsumexp(logw, dim=-1)
         out.append(moments(logw_new, s_new, m_new, v_new))
         # Adaptive systematic resampling.
-        idx = systematic_resample(generator, logw_new)
+        idx = _resample(generator, logw_new)
         do = (out[-1][3] < ess_threshold * N)[..., None]
         s = torch.where(do, torch.gather(s_new, -1, idx), s_new)
         m = torch.where(do, torch.gather(m_new, -1, idx), m_new)

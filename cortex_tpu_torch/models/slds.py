@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.chains import scalar_kalman_update
+from ..utils.tree import as_float32_tensor, as_tensors, input_device
 
 __all__ = ["SLDS", "SLDSBeliefs"]
 
@@ -56,7 +57,10 @@ class SLDS(nn.Module):
     p(s_t = j | s_{t-1} = i)``); ``A, Q, H, R``: ``(K,)`` per-regime
     coefficients; ``prior``: ``(mean, var)`` on ``x_1``; ``regime_prior``:
     ``(K,)`` p(s_1) (uniform when None).  The tensors are buffers: the model
-    computes on the device it was moved to, which must be that of its inputs.
+    computes on the device it was moved to, which must be that of its tensor
+    inputs.  Arrays that are not tensors become float32 buffers on the
+    device of the tensors among them, or on the card; ``y`` that is not a
+    tensor goes to the buffers' device.
     """
 
     def __init__(
@@ -70,11 +74,12 @@ class SLDS(nn.Module):
         regime_prior=None,
     ):
         super().__init__()
+        dev = input_device(Pi, A, Q, H, R, regime_prior)
         for name, value in (("Pi", Pi), ("A", A), ("Q", Q), ("H", H), ("R", R)):
-            self.register_buffer(name, torch.as_tensor(value))
+            self.register_buffer(name, as_float32_tensor(value, dev))
         K = self.Pi.shape[0]
         w0 = (torch.full((K,), 1.0 / K, dtype=self.Pi.dtype, device=self.Pi.device)
-              if regime_prior is None else torch.as_tensor(regime_prior))
+              if regime_prior is None else as_float32_tensor(regime_prior, dev))
         self.register_buffer("w0", w0)
         self.prior = (float(prior[0]), float(prior[1]))
 
@@ -94,6 +99,7 @@ class SLDS(nn.Module):
         Per step: regime mixing (moment matching), per-regime Kalman time and
         measurement update, regime reweighting by the predictive
         likelihoods."""
+        y, = as_tensors(y, default=self.Pi.device)
         Pi, A, Q, H, R = self.Pi, self.A, self.Q, self.H, self.R
         K = self.K
         yT = y.movedim(-1, 0)[..., None]  # (T, ..., 1) broadcast against K
@@ -149,7 +155,7 @@ class SLDS(nn.Module):
     def sample(
         self, generator: torch.Generator, T: int, batch_shape: Tuple[int, ...] = ()
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Simulate ``(s, x, y)``: regimes ``batch_shape + (T,)`` int64,
+        """Simulate ``(s, x, y)``: regimes ``batch_shape + (T,)`` int32,
         states and observations ``batch_shape + (T,)`` in the model's dtype,
         on the model's device (the generator's must match)."""
         Pi, A, Q, H, R = self.Pi, self.A, self.Q, self.H, self.R
@@ -169,4 +175,5 @@ class SLDS(nn.Module):
             ss.append(s)
             xs.append(x)
             ys.append(H[s] * x + torch.sqrt(R[s]) * vn[t])
-        return torch.stack(ss, -1), torch.stack(xs, -1), torch.stack(ys, -1)
+        # Indexing takes int64 regimes: they are cast once, at the end.
+        return torch.stack(ss, -1).to(torch.int32), torch.stack(xs, -1), torch.stack(ys, -1)

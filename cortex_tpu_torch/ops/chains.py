@@ -12,6 +12,10 @@ a Python loop here, each step updating every replica at once.
 - :func:`lgssm_smooth_assoc` — the time-parallel smoother of Särkkä and
   García-Fernández (2020) over a log-depth (Hillis–Steele) scan.
 
+Inputs that are not tensors (numpy arrays, lists) become float32 tensors on
+the device of the tensors among them, or on the card
+(:func:`~cortex_tpu_torch.utils.tree.as_tensors`); tensors are kept as given.
+
 All three return the Belief-Propagation marginals of every state:
 
     marginal_t = obs_message_t · forward_message_t · backward_message_t
@@ -28,6 +32,8 @@ import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..utils.tree import as_tensors
 
 __all__ = [
     "ChainMarginals",
@@ -48,6 +54,7 @@ def scalar_kalman_update(obs, m_pred, v_pred, H=1.0, R=1.0):
     Returns ``(m_filt, v_filt, loglik)`` with
     ``loglik = log N(obs; H·m_pred, H²·v_pred + R)``.
     """
+    obs, m_pred, v_pred, H, R = as_tensors(obs, m_pred, v_pred, H, R)
     s = H * H * v_pred + R
     ll = -0.5 * (torch.log(2.0 * math.pi * s) + (obs - H * m_pred) ** 2 / s)
     g = v_pred * H / s
@@ -61,6 +68,15 @@ class ChainMarginals(NamedTuple):
 
     mean: torch.Tensor
     variance: torch.Tensor
+
+
+def _inputs(y, prior=None, device=None):
+    """``y`` and the entries of ``prior`` as the chains take them
+    (:func:`~cortex_tpu_torch.utils.tree.as_tensors`)."""
+    if prior is None:
+        return as_tensors(y, device=device)[0], None
+    y, pm, pv = as_tensors(y, *prior, device=device)
+    return y, (pm, pv)
 
 
 def _obs_message(y, H, R):
@@ -90,6 +106,7 @@ def lgssm_smooth_scan(
     or tensors of the batch shape); ``None`` puts no prior factor on the
     first state.  Returns ``ChainMarginals`` of shape ``(..., T)``.
     """
+    y, prior = _inputs(y, prior)
     yT = y.movedim(-1, 0)  # (T, ...batch)
     xi_obs, w_obs = _obs_message(yT, H, R)
     return _info_form_smooth(xi_obs, w_obs, A, Q, prior)
@@ -181,6 +198,7 @@ def lgssm_smoother_operator(
     Built by smoothing the T×T identity through :func:`lgssm_smooth_scan`,
     so it is exact for any (A, Q, H, R) and keeps the prior convention.
     """
+    _, prior = _inputs(None, prior, device)
     eye = torch.eye(T, dtype=dtype, device=device)
     base = lgssm_smooth_scan(torch.zeros(T, dtype=dtype, device=device), A, Q, H, R, prior)
     cols = lgssm_smooth_scan(eye, A, Q, H, R, prior)
@@ -206,6 +224,9 @@ def lgssm_smooth_matmul(
     :func:`lgssm_smoother_operator`) to build it once for many calls.  The
     variance is a broadcast view of one row.
     """
+    y, prior = _inputs(y, prior)
+    if operator is not None:
+        operator = as_tensors(*operator, device=y.device)
     if operator is None:
         operator = lgssm_smoother_operator(
             y.shape[-1], A, Q, H, R, prior, y.dtype, y.device
@@ -220,6 +241,7 @@ def lgssm_smooth_matmul(
 def lgssm_messages_scan(y, A=1.0, Q=1.0, H=1.0, R=1.0):
     """Return the observation and marginal messages in information form,
     ``{"obs": (xi, w), "marginal": (xi, w)}``, each of shape ``(..., T)``."""
+    y, _ = _inputs(y)
     marg = lgssm_smooth_scan(y, A, Q, H, R)
     xi_obs, w_obs = _obs_message(y, H, R)
     return {
@@ -300,6 +322,7 @@ def lgssm_smooth_assoc(
     Same inputs and outputs as :func:`lgssm_smooth_scan`; O(log T) depth on
     the time axis.  Without a prior, ``y[..., 0]`` must be observed.
     """
+    y, prior = _inputs(y, prior)
     observed = ~torch.isnan(y)
     y = torch.where(observed, y, 0.0)
     obsT = observed.movedim(-1, 0)

@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..dists.gaussian import _cholesky_nan
+from ..utils.tree import as_float32_tensor, input_device, to_tensor, tree_leaves
 from .chains import _associative_scan, _full_float32_matmul
 
 __all__ = [
@@ -64,9 +65,16 @@ class _SElem(NamedTuple):
     L: torch.Tensor
 
 
+def _observations(y, *params) -> torch.Tensor:
+    """``y`` as the chains take it: a tensor as given; an array as float32 on
+    the device of the first tensor among ``y`` and ``params`` (tuples
+    included), or on the card."""
+    return as_float32_tensor(y, input_device(y, *tree_leaves(params)))
+
+
 def _like(y: torch.Tensor, *arrays):
     """``arrays`` as tensors in the dtype and on the device of ``y``."""
-    return tuple(torch.as_tensor(a, dtype=y.dtype, device=y.device) for a in arrays)
+    return tuple(to_tensor(a, dtype=y.dtype, device=y.device) for a in arrays)
 
 
 def _map(fn, *elems):
@@ -582,6 +590,7 @@ def mv_lgssm_smooth(
     O(log T) depth but O(T log T) work; single-device, prefer
     :func:`mv_lgssm_smooth_blocked` or :func:`mv_lgssm_smooth_seq`.
     """
+    y = _observations(y, A, Q, H, R, prior)
     A, Q, H, R, m0, P0 = _like(y, A, Q, H, R, *prior)
     elems = _build_filter_elems(y, A, Q, H, R, m0, P0, component_missing=component_missing)
     filtered = _associative_scan(_combine, elems)
@@ -628,6 +637,7 @@ def mv_lgssm_smooth_blocked(
     4·T/B + O(log B), B ≈ √T by default (:func:`_pick_blocks`).  Runs in
     the lane-major layout.
     """
+    y = _observations(y, A, Q, H, R, prior)
     A, Q, H, R, m0, P0 = _like(y, A, Q, H, R, *prior)
     d = A.shape[-1]
     T = y.shape[-2]
@@ -690,6 +700,7 @@ def _mv_filter_scan(y, A, Q, H, R, prior):
     A fully-NaN step degenerates to pure prediction with zero
     log-likelihood.
     """
+    y = _observations(y, A, Q, H, R, prior)
     A, Q, H, R, m0, P0 = _like(y, A, Q, H, R, *prior)
     d = A.shape[-1]
     mdim = H.shape[-2]
@@ -792,8 +803,8 @@ def mv_lgssm_smoother_operator(
     """Build the affine operator by smoothing the T·m unit-impulse inputs as
     one batch (linearity: column k of L is ``smooth(e_k) - smooth(0)``), on
     ``device`` (the card unless the caller asks for another)."""
-    m = torch.as_tensor(H).shape[-2]
-    d = torch.as_tensor(A).shape[-1]
+    m = to_tensor(H).shape[-2]
+    d = to_tensor(A).shape[-1]
     basis = torch.cat(
         [torch.zeros((1, T * m), dtype=dtype, device=device),
          torch.eye(T * m, dtype=dtype, device=device)],
@@ -818,6 +829,7 @@ def mv_lgssm_smooth_matmul(
     in full float32 (TF32 off).  The same marginals as
     :func:`mv_lgssm_smooth` for dense data; pass ``operator=`` to build it
     once for many sweeps.  The covariances are a broadcast view."""
+    y = _observations(y, A, Q, H, R, prior, operator)
     T, m = y.shape[-2], y.shape[-1]
     if operator is None:
         operator = mv_lgssm_smoother_operator(T, A, Q, H, R, prior, y.dtype, y.device)

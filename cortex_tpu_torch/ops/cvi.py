@@ -24,8 +24,7 @@ import numpy as np
 import torch
 from torch.func import grad
 
-from ..dists.gaussian import _device
-from ..utils.tree import as_float32_tensor
+from ..utils.tree import as_float32_tensor, input_device
 from .ep import _max_change, linear_posterior
 
 __all__ = ["CVIResult", "cvi_linear_model"]
@@ -63,7 +62,7 @@ def cvi_linear_model(
     sites reach the exact posterior in one ρ=1 step; non-conjugate sites
     ascend the ELBO along the natural gradient.
     """
-    X = as_float32_tensor(X, _device(X))
+    X = as_float32_tensor(X, input_device(X))
     n, d = X.shape
     eye = torch.eye(d, dtype=X.dtype, device=X.device)
 

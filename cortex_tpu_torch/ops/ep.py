@@ -18,8 +18,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..dists.gaussian import _cholesky_nan, _device
-from ..utils.tree import as_float32_tensor
+from ..dists.gaussian import _cholesky_nan
+from ..utils.tree import as_float32_tensor, input_device
 
 __all__ = [
     "EPResult",
@@ -53,8 +53,9 @@ def _norm_logpdf(t):
 
 def probit_tilted_moments(y) -> Callable:
     """Closed-form tilted moments for probit sites ``p(y|z) = Φ(y z)``,
-    ``y ∈ {-1, +1}`` (Rasmussen & Williams eq. 3.58): exact, no quadrature."""
-    y = as_float32_tensor(y)
+    ``y ∈ {-1, +1}`` (Rasmussen & Williams eq. 3.58): exact, no quadrature.
+    A ``y`` that is not a tensor becomes float32 on the card."""
+    y = as_float32_tensor(y, input_device(y))
 
     def moments(mu_cav, var_cav):
         s = torch.sqrt(1.0 + var_cav)
@@ -108,7 +109,8 @@ def linear_posterior(X, site_prec, site_target, prior_var):
     and the marginal variances of every ``z_i`` (one factorization serves
     all three)."""
     d = X.shape[1]
-    Sinv = torch.eye(d, dtype=X.dtype, device=X.device) / prior_var + X.T @ (site_prec[:, None] * X)
+    eye = torch.eye(d, dtype=X.dtype, device=X.device)
+    Sinv = eye / prior_var + X.T @ (site_prec[:, None] * X)
     L = _cholesky_nan(Sinv)
     m = torch.cholesky_solve((X.T @ site_target)[:, None], L)[:, 0]
     V = torch.cholesky_solve(X.T, L)  # (d, n) = S Xᵀ
@@ -133,7 +135,7 @@ def ep_linear_model(
     Conjugate (Gaussian) sites converge in one iteration to the exact
     posterior; non-conjugate sites typically need 10–30 damped iterations.
     """
-    X = as_float32_tensor(X, _device(X))
+    X = as_float32_tensor(X, input_device(X))
     n, d = X.shape
     tau = torch.full((n,), tau_floor, dtype=X.dtype, device=X.device)
     nu = torch.zeros((n,), dtype=X.dtype, device=X.device)

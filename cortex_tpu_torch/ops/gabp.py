@@ -24,8 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..dists.gaussian import _device
-from ..utils.tree import as_float32_tensor
+from ..utils.tree import as_float32_tensor, input_device, to_tensor
 
 __all__ = ["GaBPResult", "gabp_solve", "gabp_grid_solve", "grid_edges"]
 
@@ -70,9 +69,9 @@ def gabp_solve(
     ``(E,)`` off-diagonal couplings Λ_ij.  Requires Λ_ii > 0; convergence is
     guaranteed for walk-summable (e.g. diagonally dominant) models.
     """
-    dev = _device(eta, lam_diag, lam_off)
+    dev = input_device(eta, lam_diag, lam_off)
     lam_diag, eta, lam_off = (as_float32_tensor(a, dev) for a in (lam_diag, eta, lam_off))
-    edges = torch.as_tensor(edges, device=dev).long()
+    edges = to_tensor(edges, device=dev).long()
     n = lam_diag.shape[-1]
     E = edges.shape[0]
 
@@ -139,7 +138,7 @@ def gabp_grid_solve(
     ``lam_diag``: ``(H, W)`` node precisions; ``eta``: ``(..., H, W)``
     (leading replica axes); ``lam_off``: scalar coupling Λ_ij of every edge.
     """
-    dev = _device(eta, lam_diag)
+    dev = input_device(eta, lam_diag)
     lam_diag, eta = as_float32_tensor(lam_diag, dev), as_float32_tensor(eta, dev)
     H, W = lam_diag.shape
     batch = tuple(eta.shape[:-2])

@@ -7,7 +7,9 @@ replicas in the leading axes.  Messages are kept in log space
 normalized.
 
 Shapes: ``log_lik``: ``(..., T, K)``; ``log_A``: ``(K, K)`` (row = from-state)
-or batched ``(..., K, K)``; ``log_pi``: ``(K,)`` or ``(..., K)``.
+or batched ``(..., K, K)``; ``log_pi``: ``(K,)`` or ``(..., K)``.  Inputs that
+are not tensors become float32 tensors on the device of the tensors among
+them, or on the card; tensors are kept as given.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..utils.tree import as_tensors
 
 __all__ = ["HMMPosterior", "hmm_forward_backward", "hmm_viterbi"]
 
@@ -34,6 +38,7 @@ def hmm_forward_backward(
     ``T``, marginals ``gamma ∝ alpha·beta``, and the pairwise expected counts
     summed over time (the sufficient statistics of Dirichlet VMP).
     """
+    log_lik, log_A, log_pi = as_tensors(log_lik, log_A, log_pi)
     llT = log_lik.movedim(-2, 0)  # (T, ..., K)
     T = llT.shape[0]
 
@@ -67,8 +72,9 @@ def hmm_forward_backward(
 def hmm_viterbi(
     log_lik: torch.Tensor, log_A: torch.Tensor, log_pi: torch.Tensor
 ) -> torch.Tensor:
-    """Max-product (MAP path) on the chain, shape ``(..., T)`` int64.  Ties
-    go to the lowest state index, as in ``jnp.argmax``."""
+    """Max-product (MAP path) on the chain, shape ``(..., T)`` int32, as JAX
+    returns it.  Ties go to the lowest state index, as in ``jnp.argmax``."""
+    log_lik, log_A, log_pi = as_tensors(log_lik, log_A, log_pi)
     llT = log_lik.movedim(-2, 0)
     delta = log_pi + llT[0]
     args = []
@@ -79,4 +85,5 @@ def hmm_viterbi(
     path = [torch.argmax(delta, dim=-1)]
     for arg in reversed(args):
         path.append(torch.gather(arg, -1, path[-1][..., None])[..., 0])
-    return torch.stack(path[::-1], dim=-1)
+    # gather takes int64 indices: the path is cast once, at the end.
+    return torch.stack(path[::-1], dim=-1).to(torch.int32)

@@ -37,6 +37,7 @@ import functools
 import torch
 
 from .. import _build
+from ..utils.tree import as_tensors
 from .chains import ChainMarginals
 
 __all__ = [
@@ -307,7 +308,9 @@ def lgssm_smooth_fused(
     ``torch.ops.cortex_tpu_torch.lgssm_smooth``.  The TPU-only arguments of
     ``lgssm_smooth_pallas``, ``tile`` and ``interpret``, are gone: the kernel
     sizes its own tile, and the plain version takes interpret mode's place.
+    A ``y`` that is not a tensor becomes float32 on the card.
     """
+    y, = as_tensors(y)
     _check(y, A)
     if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lgssm_smooth_fused runs on cpu or cuda, not {y.device}")

@@ -27,6 +27,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils.tree import as_tensors
 from .kernels import COSTS, LAUNCHES, NAMESPACE, OPS, _library, op
 
 __all__ = [
@@ -211,8 +212,10 @@ def hgf_filter_fused(
     float32).  Filtering-only callers pass ``tracks=()``: the kernel's output
     traffic grows with the number of tracks.  The parameters are plain
     numbers; a tensor that requires grad raises, since the kernel has no
-    backward (use ``HGF.filter(method="scan")``).
+    backward (use ``HGF.filter(method="scan")``).  A ``u`` that is not a
+    tensor becomes float32 on the card.
     """
+    u, = as_tensors(u)
     params = dict(zip(PARAMS, (kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step)))
     tracks, track_dtype, p = _check(u, tracks, track_dtype, params)
     if u.device.type not in ("cpu", "cuda"):

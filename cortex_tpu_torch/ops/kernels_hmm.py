@@ -31,6 +31,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.tree import as_tensors
 from .chains import _full_float32_matmul
 from .kernels import (COSTS, LAUNCHES, NAMESPACE, OPS, SMEM_LIMIT_BYTES, _library, op,
                       row_pitch)
@@ -255,7 +256,9 @@ def hmm_forward_backward_fused(
 ) -> HMMFusedPosterior:
     """Scaled forward-backward: ``lik`` (R, T, K) float32 per-step
     likelihoods (linear space), ``A`` (K, K) row-stochastic, ``pi`` (K,), all
-    on one device.  Returns ``(gamma, log_evidence)``."""
+    on one device (arrays that are not tensors become float32 there, or on
+    the card).  Returns ``(gamma, log_evidence)``."""
+    lik, A, pi = as_tensors(lik, A, pi)
     _check(lik, A, pi)
     _check_device(lik)
     return HMMFusedPosterior(*_HMM_FB(lik, A, pi))
@@ -266,7 +269,9 @@ def hmm_forward_backward_counts_fused(
 ) -> HMMFusedCounts:
     """Scaled forward-backward emitting the state marginals, the summed
     pairwise counts ``xi_sum`` (R, K, K) and the log-evidence.  On the card
-    the counts are summed inside the backward pass."""
+    the counts are summed inside the backward pass.  Inputs as
+    :func:`hmm_forward_backward_fused` takes them."""
+    lik, A, pi = as_tensors(lik, A, pi)
     _check(lik, A, pi)
     _check_device(lik)
     return HMMFusedCounts(*_HMM_FB_COUNTS(lik, A, pi))

@@ -25,8 +25,8 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
-from ..dists.gaussian import _device, _spd_cholesky, _spd_solve_logdet
-from ..utils.tree import as_float32_tensor
+from ..dists.gaussian import _spd_cholesky, _spd_solve_logdet
+from ..utils.tree import as_float32_tensor, input_device, to_tensor
 
 __all__ = [
     "NLSSMBeliefs",
@@ -65,9 +65,9 @@ def _gaussian_ll(v, S):
 def _inputs(y, Q, R, m0, P0):
     """``y`` as ``(B, T, m)`` on its device, the batch shape, and the model's
     arrays as tensors of ``y``'s dtype on that device."""
-    dev = _device(y, Q, R, m0, P0)
+    dev = input_device(y, Q, R, m0, P0)
     y = as_float32_tensor(y, dev)
-    Q, R, m0, P0 = (torch.as_tensor(a, dtype=y.dtype, device=y.device) for a in (Q, R, m0, P0))
+    Q, R, m0, P0 = (to_tensor(a, dtype=y.dtype, device=y.device) for a in (Q, R, m0, P0))
     batch_shape = tuple(y.shape[:-2])
     return y.reshape((-1,) + tuple(y.shape[-2:])), batch_shape, Q, R, m0, P0
 
@@ -243,4 +243,3 @@ def ukf_smooth(
     y, batch_shape, Q, R, m0, P0 = _inputs(y, Q, R, m0, P0)
     mean, cov, ll, steps = _ukf_pass(f, h, Q, R, y, m0, P0, alpha, beta, kappa, jitter)
     return _outputs(batch_shape, *_rts_backward(mean, cov, steps), ll)
-

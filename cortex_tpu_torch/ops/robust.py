@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .chains import _info_form_smooth
+from .chains import _info_form_smooth, _inputs
 
 __all__ = ["RobustChainResult", "robust_lgssm_smooth"]
 
@@ -53,6 +53,7 @@ def robust_lgssm_smooth(
     (``y``: ``(..., T)``, NaN = missing, optional prior on ``x_1``) plus the
     tail parameter ``nu`` (ν → ∞ ⇒ Gaussian) and the VB iteration count.
     """
+    y, prior = _inputs(y, prior)
     observed = ~torch.isnan(y)
     y = torch.where(observed, y, 0.0)
     yT = y.movedim(-1, 0)  # (T, ...)

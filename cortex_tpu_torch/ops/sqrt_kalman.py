@@ -20,7 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..dists.gaussian import _cholesky_nan
-from .chains_mv import MvChainMarginals, _like, _mT
+from .chains_mv import MvChainMarginals, _like, _mT, _observations
 
 __all__ = ["SqrtFilterBeliefs", "sqrt_lgssm_filter", "sqrt_lgssm_smooth"]
 
@@ -51,6 +51,7 @@ class SqrtFilterBeliefs(NamedTuple):
 
 
 def _prepare(y, A, Q, H, R, prior):
+    y = _observations(y, A, Q, H, R, prior)
     A, Q, H, R, m0, P0 = _like(y, A, Q, H, R, *prior)
     Lq, Lr, L0 = _cholesky_nan(Q), _cholesky_nan(R), _cholesky_nan(P0)
     # Missing steps (any NaN in the observation vector) skip the measurement

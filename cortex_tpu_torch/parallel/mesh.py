@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.tree import as_float32_tensor
+
 __all__ = [
     "CollectiveStats",
     "Mesh",
@@ -239,8 +241,10 @@ def _split_dims(x_shape, sharding: NamedSharding):
 def shard(x, sharding: NamedSharding) -> torch.Tensor:
     """This rank's block of the whole ``x`` (a tensor or an array), on the
     mesh's device (``jax.device_put``).  A dimension must divide evenly over
-    its axis.  The block may share memory with ``x``."""
-    x = torch.as_tensor(x)
+    its axis.  The block may share memory with ``x``.  An array that is not a
+    tensor becomes float32 (integers: int32), as ``jax.device_put`` makes it;
+    a tensor keeps its dtype."""
+    x = as_float32_tensor(x)
     mesh = sharding.mesh
     for dim, axis in _split_dims(x.shape, sharding):
         n, size = mesh.shape[axis], x.shape[dim]

@@ -6,7 +6,8 @@ chunk *i*, chunk *i+1* is already being copied: it goes from pinned host
 memory with ``non_blocking=True`` on a side CUDA stream, an event is recorded
 there, and the compute stream waits on that event before it uses the chunk
 (double buffering).  On ``device="cpu"`` the same functions simply run in
-order.
+order.  A chunk that is not a tensor becomes float32 (integers: int32), as
+``jnp.asarray`` makes it, before its copy; a tensor keeps its dtype.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 from typing import Any, Callable, Iterable, List, Optional, Tuple
 
 import torch
+
+from ..utils.tree import as_float32_tensor
 
 __all__ = ["stream_filter", "StreamingSession"]
 
@@ -33,7 +36,7 @@ class _Stager:
 
     def put(self, chunk) -> _Staged:
         """Start the copy of ``chunk`` (a tensor or an array) to the device."""
-        host = torch.as_tensor(chunk)
+        host = as_float32_tensor(chunk)
         if self.stream is None or host.device == self.device:
             return host.to(self.device), None
         if host.device.type == "cpu" and not host.is_pinned():

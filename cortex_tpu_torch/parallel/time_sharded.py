@@ -51,6 +51,7 @@ from ..ops.chains_mv import (
     _mT,
     _solve_small,
 )
+from ..utils.tree import to_tensor
 from .mesh import Mesh, all_gather
 
 __all__ = ["lgssm_smooth_time_sharded", "mv_lgssm_smooth_time_sharded"]
@@ -122,8 +123,8 @@ def lgssm_smooth_time_sharded(
     # -- the first global element is special (prior / first obs) ----------
     if my == 0:
         if prior is not None:
-            m0 = torch.as_tensor(prior[0], dtype=y.dtype, device=y.device).expand(yT.shape[1:])
-            P0 = torch.as_tensor(prior[1], dtype=y.dtype, device=y.device).expand(yT.shape[1:])
+            m0 = to_tensor(prior[0], dtype=y.dtype, device=y.device).expand(yT.shape[1:])
+            P0 = to_tensor(prior[1], dtype=y.dtype, device=y.device).expand(yT.shape[1:])
             S1 = H * P0 * H + R
             K1 = P0 * H / S1
             b_e[0] = m0 + K1 * (yT[0] - H * m0)

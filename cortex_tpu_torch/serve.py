@@ -25,21 +25,25 @@ A captured graph reads fixed input buffers and writes fixed output buffers,
 so a call checks its arguments against the example (a wrongly shaped request
 raises ``TypeError`` instead of being broadcast into the buffer) and returns
 copies of the outputs (the next request does not overwrite the last answer).
+An argument that is not a tensor (a numpy array) is made one first, as
+``jnp.asarray`` makes it (float32, int32), on the device of the example's
+leaf in its place; a tensor is checked as it is.
 """
 
 from __future__ import annotations
 
 import io
 import math
-import operator
 import os
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+import operator
 
 import torch
 
 from . import _build
 from .ops import kernels
-from .utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten, treedef_str
+from .utils.tree import (as_tensors, tree_flatten, tree_leaves, tree_map, tree_unflatten,
+                         treedef_str)
 
 __all__ = [
     "aot_compile",
@@ -90,6 +94,17 @@ def _export(fn: Callable, args: Sequence[Any], static_argnums: Sequence[int] = (
                 f"a dynamic argument's leaf must be a tensor, got {type(leaf).__name__}: "
                 "pass it in static_argnums")
     return torch.export.export(_Bound(fn, args, sorted(static)), dynamic), dynamic
+
+
+def _as_tensors_like(args: Any, in_def: Any, devices: Sequence[Any]) -> Tuple[list, Any]:
+    """``(leaves, structure)`` of ``args``, each leaf that is an array made a
+    tensor on the device at its place in ``devices`` (those of an example of
+    structure ``in_def``; on the card where the structures differ, which the
+    caller's check then reports)."""
+    leaves, treedef = tree_flatten(args)
+    if treedef != in_def:
+        devices = [None] * len(leaves)
+    return [as_tensors(a, default=d)[0] for a, d in zip(leaves, devices)], treedef
 
 
 def _nbytes(value: Any) -> int:
@@ -165,7 +180,7 @@ class CompiledFn:
         self._graph = graph
 
     def _check(self, args) -> list:
-        leaves, in_def = tree_flatten(args)
+        leaves, in_def = _as_tensors_like(args, self._in_def, [d for *_, d in self._specs])
         if in_def != self._in_def:
             raise TypeError(
                 "Argument structure differs from the one this function was compiled for: "
@@ -183,7 +198,7 @@ class CompiledFn:
     def __call__(self, *args):
         leaves = self._check(args)
         if self._graph is None:
-            return self._module(*args)
+            return self._module(*tree_unflatten(self._in_def, leaves))
         for buffer, leaf in zip(self._inputs, leaves):
             buffer.copy_(leaf)
         self._graph.replay()
@@ -302,7 +317,11 @@ class BucketedServer:
             )
         ]
         self._compiled: dict[int, CompiledFn] = {}
-        self._example = example_args
+        # Arrays in the example become tensors on the card; a request's
+        # arrays go to the device of the example's leaf in their place.
+        self._example = tree_map(lambda a: as_tensors(a)[0], example_args)
+        leaves, self._in_def = tree_flatten(self._example)
+        self._devices = [getattr(leaf, "device", None) for leaf in leaves]
         if precompile:
             for b in self.buckets:
                 self._get(b)
@@ -317,7 +336,6 @@ class BucketedServer:
 
     def _pad(self, args, b: int):
         def pad_leaf(a):
-            a = torch.as_tensor(a)
             if a.shape[0] >= b:  # example larger than the bucket: slice down
                 return a[:b]
             return torch.cat([a, a.new_zeros((b - a.shape[0], *a.shape[1:]))])
@@ -330,7 +348,9 @@ class BucketedServer:
         return self._compiled[b]
 
     def __call__(self, *args):
-        n = tree_leaves(args)[0].shape[0]
+        leaves, treedef = _as_tensors_like(args, self._in_def, self._devices)
+        args = tree_unflatten(treedef, leaves)
+        n = leaves[0].shape[0]
         b = _bucket_for(n, self.buckets)
         out = self._get(b)(*self._pad(args, b))
         return tree_map(lambda o: o[:n], out)

@@ -29,7 +29,11 @@ __all__ = [
     "tree_leaves",
     "tree_structure",
     "tree_map",
+    "DEFAULT_DEVICE",
+    "input_device",
     "as_float32_tensor",
+    "as_tensors",
+    "to_tensor",
     "stack",
     "concatenate",
 ]
@@ -138,10 +142,13 @@ def keystr(path: Sequence[str]) -> str:
 
 
 def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of ``tree`` in order (``jax.tree_util.tree_leaves``)."""
     return tree_flatten(tree)[0]
 
 
 def tree_structure(tree: Any) -> Any:
+    """The structure of ``tree``, as :func:`tree_flatten` gives it
+    (``jax.tree_util.tree_structure``)."""
     return tree_flatten(tree)[1]
 
 
@@ -187,24 +194,75 @@ def treedef_str(treedef: Any) -> str:
     return f"PyTreeDef({text(treedef)})"
 
 
+# Where inputs that are not tensors go when nothing else names a device: the
+# card.  Not an option of any entry point; a test on a machine without a card
+# sets it to "cpu", to feed the port the very arrays it feeds the JAX package.
+DEFAULT_DEVICE = "cuda"
+
+# numpy's 64-bit types and what ``jnp.asarray`` makes of them with 64-bit
+# types off.
+_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+           np.dtype(np.uint64): np.uint32, np.dtype(np.complex128): np.complex64}
+
+
+def input_device(*xs: Any, device=None, default=None):
+    """The device that the inputs among ``xs`` which are not tensors go to:
+    ``device`` if the caller named one; else that of the first tensor among
+    ``xs``; else ``default`` (the device of a model's buffers, or the one an
+    object was built for); else :data:`DEFAULT_DEVICE`, the card.  Never the
+    CPU unless one of these names it: without a card, a copy there raises."""
+    if device is not None:
+        return device
+    first = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    if first is not None:
+        return first
+    return DEFAULT_DEVICE if default is None else default
+
+
 def as_float32_tensor(x: Any, device=None) -> torch.Tensor:
     """``x`` as a tensor, as ``jnp.asarray`` makes it with 64-bit types off:
-    a tensor stays as it is; Python and numpy floats become float32 and
-    integers int32, on ``device``."""
+    a tensor stays as it is, with its dtype and device; numpy arrays of any
+    stride, numpy and Python scalars and lists become float32 (floats),
+    int32 (integers) or bool, on ``device`` (left where numpy puts them, on
+    the host, when it is ``None``)."""
     if isinstance(x, torch.Tensor):
         return x
-    t = torch.as_tensor(np.asarray(x))
-    if t.dtype == torch.float64:
-        t = t.to(torch.float32)
-    elif t.dtype == torch.int64:
-        t = t.to(torch.int32)
+    a = np.asarray(x)
+    # A copy, in row-major order: the tensor owns its memory, as a JAX array
+    # does, whatever the strides or the writability of ``x``.
+    t = torch.from_numpy(np.array(a, dtype=_NARROW.get(a.dtype, a.dtype), order="C"))
     return t if device is None else t.to(device)
+
+
+def to_tensor(x: Any, dtype=None, device=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype, device)`` that also takes a numpy array of
+    any stride (one with a negative stride is copied in row-major order
+    first, which ``torch.as_tensor`` refuses to do)."""
+    if isinstance(x, np.ndarray) and any(s < 0 for s in x.strides):
+        x = np.array(x, order="C")
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def as_tensors(*xs: Any, device=None, default=None) -> Tuple[Any, ...]:
+    """``xs`` as an entry point takes them: every array among them (numpy
+    arrays of any stride, numpy scalars, lists) made a tensor by
+    :func:`as_float32_tensor` on the one device that :func:`input_device`
+    picks for ``xs``, ``device`` and ``default``; tensors, Python numbers and
+    ``None`` as given."""
+    dev = None
+    out = []
+    for x in xs:
+        if not (x is None or isinstance(x, (torch.Tensor, bool, int, float))):
+            dev = input_device(*xs, device=device, default=default) if dev is None else dev
+            x = as_float32_tensor(x, dev)
+        out.append(x)
+    return tuple(out)
 
 
 def _tensors(xs: Sequence[Any]) -> List[torch.Tensor]:
     if all(isinstance(x, torch.Tensor) for x in xs):
         return list(xs)
-    device = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    device = input_device(*xs)
     return [as_float32_tensor(x, device) for x in xs]
 
 

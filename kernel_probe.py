@@ -107,16 +107,19 @@ _HMM_NO_COUNT_SHUFFLES = [
     ("S[j] = fmaf(__shfl_sync(kFull, q, j, G), w, S[j]);", "S[j] = fmaf(q, w, S[j]);"),
 ]
 _HMM_NO_DIVISIONS = [("a = a / n;", "a = a * n;"), ("b = u / s;", "b = u * s;"),
-                     ("g / gs", "g * gs"), ("const float q = a_t / N;", "const float q = a_t * N;")]
+                     ("g / gs", "g * gs"),
+                     ("const float q = a_t / N;", "const float q = a_t * N;")]
 # Variants of this PR's pair path (fb_pair_kernel).
 _PAIR_LAUNCH = [("  const int n = T * K;\n  const int PL = static_cast<int>(row_pitch(n));\n",
                  "  if (T > 0) return;\n  const int n = T * K;\n"
                  "  const int PL = static_cast<int>(row_pitch(n));\n")]
 _PAIR_NO_CHAINS = [("  if (warp == 0) {  // -- forward", "  if (false) {  // -- forward"),
-                   ("  } else if (warp == 1) {  // -- backward", "  } else if (false) {  // -- backward")]
+                   ("  } else if (warp == 1) {  // -- backward",
+                    "  } else if (false) {  // -- backward")]
 _PAIR_NO_COMBINE = [("for (int t = warp * span; t < t_end; ++t) {",
                      "for (int t = warp * span; t < 0; ++t) {")]
-_PAIR_NO_LOAD = [("async_copy::copy16(s_lik + i * PL + 4 * m, L + 4LL * e);", "")]
+_PAIR_NO_LOAD = [("async_copy::copy16(s_lik + i * PL + 4 * m, L + 4LL * e);",
+                  "")]
 _PAIR_NO_FLUSH = [("      *reinterpret_cast<float4*>(G + 4LL * e) =\n"
                    "          *reinterpret_cast<const float4*>(s_alpha + i * PL + 4 * m);\n", "")]
 VARIANTS = {
@@ -126,7 +129,8 @@ VARIANTS = {
     "k1 store only": ("lgssm_smooth.cu", [
         ("    sweep(row, row, s_xf + threadIdx.x * P, 1, T, s_coef, s_coef + T, s_coef + 2 * T,\n"
          "          h_over_r);\n", ""),
-        ("if (q < count4) v[j] = y4[q];", "if (q < count4) v[j] = make_float4(1.f, 2.f, 3.f, 4.f);"),
+        ("if (q < count4) v[j] = y4[q];",
+         "if (q < count4) v[j] = make_float4(1.f, 2.f, 3.f, 4.f);"),
         ("s_y[Pos(k, T).slot(P)] = y[base + k];", "s_y[Pos(k, T).slot(P)] = 1.f;"),
     ]),
     "hmm lik in registers": ("hmm_forward_backward.cu", _HMM_NO_LIK),
@@ -298,7 +302,8 @@ def hmm_rows(torch, smoke, packages: dict, flush, shapes=HMM_SHAPES, setups=None
                     if setups:
                         setups[label]()
                     k = pkg.ops.kernels_hmm
-                    op = k.hmm_forward_backward_counts_fused if counts else k.hmm_forward_backward_fused
+                    op = (k.hmm_forward_backward_counts_fused if counts
+                          else k.hmm_forward_backward_fused)
                     return op(lik, A, pi)
                 fns[label] = fn
             outs = {label: fn() for label, fn in fns.items()}

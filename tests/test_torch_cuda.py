@@ -603,3 +603,26 @@ def test_chip_smoke_servers_on_card(cuda, tmp_path):
     profiled = smoke.run_replay_profile(tmp_path)
     assert sorted(c["server"] for c in profiled) == sorted(run["servers"])
     assert all(c["replay_ran"] for c in profiled)
+
+
+@pytest.mark.cuda
+def test_numpy_inputs_run_on_the_card_as_the_tensor_call(cuda):
+    """chip_smoke.py's boundary phase at a small size: float64 and int64
+    numpy (reversed views) go to the card as float32 and int32, launch each
+    path's kernel (K1, K2, K3 once a VMP iteration and once for the smooth,
+    K4) and give, bit for bit, what the tensor-fed call gives."""
+    from cortex_tpu_torch import diag, serve
+
+    smoke = _chip_smoke()
+    shapes = {"lgssm": (300, 100), "hmm": (64, 64, 4, 8), "hgf": (256, 64), "request": 5,
+              "chains": (8, 400)}
+    # Captured up front, as phase 22's server is: a request then replays and
+    # counts no launch.
+    server = serve.BucketedServer(lambda y: ops.lgssm_smooth_fused(y),
+                                  (torch.zeros((8, 100), device=cuda),), max_batch=8,
+                                  precompile=True)
+    checks = smoke.run_boundary(torch, models, ops, diag, kernels, server, "cuda",
+                                smoke.boundary_data(shapes))
+    launched = {k: sum(c["launches"].get(k, 0) for c in checks) for k in kernels.LAUNCHES}
+    assert launched == smoke.BOUNDARY_LAUNCHES
+    assert all(c["bit_equal"] and c["devices"] == ["cuda:0"] for c in checks)

@@ -125,8 +125,9 @@ def test_slds_filter_matches_jax(params):
 
 def test_identical_regimes_match_k1():
     y = torch.from_numpy(_walk(1, 60))
-    single = SLDS([[1.0]], [0.8], [0.3], [1.0], [0.5])
-    double = SLDS(**SAME)
+    # Lists follow Pi, a CPU tensor: arrays alone would go to the card.
+    single = SLDS(torch.tensor([[1.0]]), [0.8], [0.3], [1.0], [0.5])
+    double = SLDS(**dict(SAME, Pi=torch.tensor(SAME["Pi"])))
     a, b = single.filter(y), double.filter(y)
     for field in ("mean", "variance", "loglik"):
         _close(getattr(b, field), getattr(a, field).numpy(), 1e-4, 1e-5)
@@ -154,7 +155,7 @@ def test_slds_samples_follow_the_model_and_are_classified():
     gen = torch.Generator().manual_seed(0)
     s, x, y = port.sample(gen, 400, (8,))
     assert s.shape == x.shape == y.shape == (8, 400)
-    assert s.dtype == torch.int64 and set(s.unique().tolist()) <= {0, 1}
+    assert s.dtype == torch.int32 and set(s.unique().tolist()) <= {0, 1}
     switches = float((s[:, 1:] != s[:, :-1]).float().mean())
     assert 0.015 < switches < 0.05
     step = (x[:, 1:] - 0.98 * x[:, :-1]).pow(2)
@@ -180,7 +181,7 @@ def test_systematic_indices_match_jax(n, scale, seed):
         want = np.asarray(resample(key, jnp.asarray(log_w)))
         u = torch.tensor(np.asarray(jax.random.uniform(key)))
         got = systematic_indices(torch.from_numpy(log_w), u)
-        assert got.dtype == torch.int64
+        assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
 
 
