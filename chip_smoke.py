@@ -2,7 +2,9 @@
 the generic compiled path, the Gaussian mixtures, the vector chains, the
 parallel layer, the switching and particle state-space models, the rest
 of the model zoo, serving (CUDA graphs, exported programs, checkpoints,
-diagnostics, the native signal core), and the kernels' paths fed numpy.
+diagnostics, the native signal core), the kernels' paths fed numpy, and the
+value layer (distributions and parameter containers) fed Python and numpy
+values.
 
 Run from the root of a checkout, with one CUDA card::
 
@@ -143,6 +145,16 @@ single-device runs.  Phases, each printing JSON lines:
     to phase 22's K1 server, ``rhat`` and ``ess``; each result on the card,
     float32 (int32), equal bit for bit to the tensor-fed call; each call's
     launches and time, and the phase's seconds.
+25. ``values``: the value layer fed Python and numpy values: the
+    Beta-Bernoulli coin toss at 10,000 replicas x 20 tosses through
+    ``CompiledInference`` fed numpy, its marginal times a prior
+    ``Beta(1.0, 1.0)`` of Python floats, then its entropy, KL to the prior
+    and log normalizer (the exact posterior ``Beta(1 + heads, 1 + tails)``,
+    the rest against float64 numpy); every public method and property of the
+    ten distributions and of the models' value types with float64 numpy
+    fields at 65,536 replicas; each result float64 numpy where the JAX
+    package computes in numpy, else on the card in JAX's dtype and equal bit
+    for bit to the tensor-fed call; no launch of K1-K4; the phase's seconds.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 A failed check raises: the exit code is non-zero and the last line is not
@@ -3911,9 +3923,12 @@ for name, (server, _, kernel, inputs) in servers.items():
     x = server._pad((inputs[-1],), b)[0]
     compiled = server.compiled(b)
     compiled(x)
-    for attempt in range(3):  # a profile now and then holds no kernel record
-        names = [n for n, _, _ in smoke._profile_once(torch, lambda: compiled(x))["top"]]
-        if names:
+    # A profile now and then holds no kernel record, only the replay's copy
+    # in: profile again until one holds a kernel.
+    for attempt in range(5):
+        profiled = smoke._profile_once(torch, lambda: compiled(x))
+        names = [n for n, _, _ in profiled["top"]]
+        if profiled["kernels"]:
             break
     report[name] = {{"kernel": kernel, "bucket": b, "profiles": attempt + 1, "names": names,
                     "captured": compiled.captured_launches.get(kernel, 0)}}
@@ -4337,6 +4352,355 @@ def phase_boundary(torch, models, ops, kernels, server, card: str) -> dict:
     return launches
 
 
+# -- The value layer (phase 25) -------------------------------------------------------
+# The coin toss of BASELINE.json's first config (Beta-Bernoulli, exact conjugate
+# posterior) at the width of the other main paths: 10,000 replicas of 20 tosses
+# through CompiledInference, fed numpy, with a prior of Python floats; then every
+# distribution and every value type of the models with float64 numpy fields at
+# 65,536 replicas, each public method and property called once fed numpy and once
+# fed the tensors on the card that numpy's float32 rounding gives.
+# The GP posteriors predict at "gp" points, not at every replica: their variance
+# takes the diagonal of the full test-kernel matrix, as the JAX package's does.
+VALUES_SHAPES = {"star": (10_000, 20), "replicas": 65_536, "K": 8, "d": 4, "window": 16,
+                 "fit": 64, "gp": 4_096}
+VALUES_BUDGET_S = 30.0  # the phase's aim on an H100
+N_VALUES_REF = 64  # replicas of the star held against float64 numpy
+# Against float64 numpy, the Beta's entropy, KL and log normalizer in float32:
+# log-gamma near 50 (a float32 ulp of 4e-6) in three terms that cancel to ~14.
+VALUES_F64_TOL = 1e-4
+VALUE_DISTS = ("Gaussian", "MvGaussian", "Beta", "Gamma", "Bernoulli", "Categorical",
+               "Dirichlet", "NormalGamma", "Wishart", "Poisson")
+# The value types of the models (and BayesianLinearRegression.predictive, which
+# takes one); their fits and other entry points take series, not values.
+VALUE_MODELS = ("LGSSMParams", "MvLGSSMParams", "NIGPosterior", "PoissonPosterior",
+                "EPClassifierPosterior", "GMMPosterior", "GMMFullPosterior", "GPPosterior",
+                "SGPRPosterior", "GPCPosterior", "GaussianNIG", "BernoulliBeta",
+                "BayesianLinearRegression")
+VALUE_ENTRY_POINTS = {"BayesianLinearRegression": ("fit",)}
+# What the JAX package computes in numpy, float64, when every input is numpy
+# (tests/test_torch_values.py holds each against it); every other result is an
+# array, here a tensor on the card.
+NUMPY_RESULTS = {
+    *(f"{c}.{m}" for c in ("Gaussian", "MvGaussian", "Beta", "Gamma", "Bernoulli",
+                           "Categorical", "Dirichlet") for m in ("__mul__", "__truediv__")),
+    "Gaussian.mean", "Gaussian.variance", "Gaussian.precision", "MvGaussian.precision",
+    "Beta.mean", "Beta.variance", "Gamma.mean", "Gamma.scale", "Gamma.variance",
+    "NormalGamma.__mul__", "NormalGamma.expected_tau_sq_diff", "NormalGamma.mean_mu",
+    "NormalGamma.mean_tau", "Wishart.__mul__", "Wishart.mean", "Poisson.__mul__",
+    "GaussianNIG.update_stats", "BernoulliBeta.update_stats", "GMMPosterior.means",
+    "GMMPosterior.precisions", "GMMFullPosterior.means", "GMMFullPosterior.expected_precisions",
+    "NIGPosterior.coeff_cov", "NIGPosterior.noise_mean", "BayesianLinearRegression.predictive",
+}
+VALUE_DTYPES = {"Bernoulli.sample": "torch.bool", "Categorical.sample": "torch.int32",
+                "Poisson.sample": "torch.int32"}
+
+
+def numpy_digamma(x):
+    """ψ(x) in float64 for x > 0: the recurrence up to 6, then the asymptotic
+    series."""
+    x = np.array(x, np.float64)
+    out = np.zeros_like(x)
+    while (x < 6.0).any():
+        small = x < 6.0
+        out[small] -= 1.0 / x[small]
+        x[small] += 1.0
+    inv2 = 1.0 / (x * x)
+    series = inv2 * (1 / 12 - inv2 * (1 / 120 - inv2 * (1 / 252 - inv2 * (1 / 240 - inv2 / 132))))
+    return out + np.log(x) - 0.5 / x - series
+
+
+def numpy_beta_values(a, b) -> dict:
+    """Float64 log normalizer, entropy and KL to Beta(1, 1) of Beta(a, b)."""
+    lgamma = np.vectorize(math.lgamma)
+    betaln = lgamma(a) + lgamma(b) - lgamma(a + b)
+    entropy = (betaln - (a - 1.0) * numpy_digamma(a) - (b - 1.0) * numpy_digamma(b)
+               + (a + b - 2.0) * numpy_digamma(a + b))
+    return {"log_normalizer": betaln, "entropy": entropy, "kl": -entropy}
+
+
+def value_methods(cls, skip=()) -> list:
+    """The public methods and properties of ``cls`` itself, ``*`` and ``/``
+    too, as tests/test_torch_values.py walks them."""
+    return [k for k, v in vars(cls).items()
+            if (not k.startswith("_") or k in ("__mul__", "__truediv__")) and k not in skip
+            and (callable(v) or isinstance(v, (property, classmethod, staticmethod)))]
+
+
+def values_data(shapes=VALUES_SHAPES, seed: int = 80) -> dict:
+    """The phase's inputs as float64 numpy, each class's first field a
+    reversed view: ``{"flips": (tosses, replicas), name: {"fields", "other",
+    "stacked", "args"}}``, and ``"fit"``: the GP posteriors' training data."""
+    rng = np.random.default_rng(seed)
+    R, K, d, W = shapes["replicas"], shapes["K"], shapes["d"], shapes["window"]
+    R_star, n_tosses = shapes["star"]
+
+    def pos(*shape, low=0.5, high=3.0):
+        return rng.uniform(low, high, shape)
+
+    def normal(*shape):
+        return rng.normal(size=shape)
+
+    def spd(*shape):
+        a = rng.normal(size=shape + (d, d))
+        return a @ np.swapaxes(a, -1, -2) + d * np.eye(d)
+
+    def fields():
+        return {
+            "Gaussian": dict(xi=normal(R), w=pos(R)),
+            "MvGaussian": dict(xi=normal(R, d), W=spd(R)),
+            "Beta": dict(a=pos(R), b=pos(R)),
+            "Gamma": dict(shape=pos(R), rate=pos(R)),
+            "Bernoulli": dict(logit=normal(R)),
+            "Categorical": dict(logits=normal(R, K)),
+            "Dirichlet": dict(alpha=pos(R, K)),
+            "NormalGamma": dict(m=normal(R), beta=pos(R), a=pos(R), b=pos(R)),
+            "Wishart": dict(n=pos(R, low=d + 1.0, high=d + 4.0), V=spd(R)),
+            "Poisson": dict(log_rate=normal(R)),
+            "LGSSMParams": dict(A=normal(R), log_Q=normal(R), log_R=normal(R)),
+            "MvLGSSMParams": dict(A=0.5 * normal(d, d), q_chol=np.tril(0.3 * normal(d, d)),
+                                  r_chol=np.tril(0.3 * normal(d, d))),
+            "NIGPosterior": dict(mean=normal(R, d), cov_scale=spd(R), a=pos(R, low=1.5, high=4.0),
+                                 b=pos(R), log_evidence=normal(R)),
+            "PoissonPosterior": dict(mean=0.3 * normal(d), cov=0.05 * spd(), ep=None),
+            "EPClassifierPosterior": dict(mean=normal(d), cov=spd(), ep=None,
+                                          likelihood="logit"),
+            "GMMPosterior": dict(alpha=pos(R, K), m=normal(R, K, d), beta=pos(R, K, d),
+                                 a=pos(R, K, d), b=pos(R, K, d)),
+            "GMMFullPosterior": dict(alpha=pos(R, K), m=normal(R, K, d), beta=pos(R, K),
+                                     W=spd(R, K), nu=pos(R, K, low=d + 1.5, high=d + 5.0)),
+        }
+
+    one, two = fields(), fields()
+    points = {"Beta": pos(R, low=0.05, high=0.95), "Gamma": pos(R), "Gaussian": normal(R),
+              "MvGaussian": normal(R, d), "NormalGamma": normal(R),
+              "Poisson": rng.integers(0, 6, R).astype(np.float64)}
+    probs = pos(R, K)
+    xs = normal(R, d)
+    data = {"flips": (rng.random((n_tosses, R_star)) < 0.3).astype(np.float64),
+            "fit": {"X": normal(shapes["fit"], d), "y": normal(shapes["fit"])}}
+    for name, f in one.items():
+        first = next(k for k, v in f.items() if isinstance(v, np.ndarray) and v.ndim)
+        f[first] = np.ascontiguousarray(f[first][..., ::-1])[..., ::-1]
+        data[name] = {"fields": f, "other": two[name],
+                      "stacked": {k: None if v is None else v if isinstance(v, str)
+                                  else np.stack([v, two[name][k]]) for k, v in f.items()},
+                      "args": {"point": points.get(name), "xs": xs}}
+    data["Bernoulli"]["args"]["from_prob"] = (pos(R, low=0.05, high=0.95),)
+    data["Categorical"]["args"]["from_probs"] = (probs / probs.sum(-1, keepdims=True),)
+    data["Poisson"]["args"]["from_rate"] = (pos(R),)
+    data["Gamma"]["args"]["from_shape_scale"] = (pos(R), pos(R))
+    gp_xs = normal(shapes["gp"], d)
+    for name in ("GPPosterior", "SGPRPosterior", "GPCPosterior"):
+        data[name] = {"fields": None, "args": {"xs": gp_xs}}
+    n, s = pos(R, W, low=1.0, high=8.0), normal(R, W)  # q ≥ s²/n: a valid window
+    data["GaussianNIG"] = {"fields": {}, "args": {
+        "stats": (n, s, s * s / n + pos(R, W)), "y": normal(R), "shape": (R, W)}}
+    data["BernoulliBeta"] = {"fields": {}, "args": {
+        "stats": tuple(rng.integers(0, 5, (2, R, W)).astype(np.float64)),
+        "y": (rng.random(R) < 0.5).astype(np.float64), "shape": (R, W)}}
+    data["BayesianLinearRegression"] = {"fields": {}, "args": {
+        "posterior": dict(mean=normal(d), cov_scale=spd(), a=np.array(2.5), b=np.array(1.5),
+                          log_evidence=np.array(0.0)), "xs": xs}}
+    return data
+
+
+def _value_call(torch, dists, models, name, method, inputs, built, device):
+    """``name.method`` on ``inputs`` (one class's entry of :func:`values_data`,
+    in numpy or as tensors); ``built``: the fitted GP posteriors."""
+    cls = getattr(dists if name in VALUE_DISTS else models, name)
+    obj = built[name] if inputs["fields"] is None else cls(**inputs["fields"])
+    args = inputs["args"]
+    attr = vars(cls)[method]
+    if isinstance(attr, property):
+        return getattr(obj, method)
+
+    def key():
+        return torch.Generator(device).manual_seed(7)
+
+    call = {
+        "__mul__": lambda: (cls(**inputs["other"]),),
+        "__truediv__": lambda: (cls(**inputs["other"]),),
+        "kl": lambda: (cls(**inputs["other"]),),
+        "reduce_product": lambda: (cls(**inputs["stacked"]), 0),
+        "sample": lambda: (key(),) if name == "Wishart" else (key(), (2,)),
+        "logpdf": lambda: (args["point"],),
+        "logpmf": lambda: (args["point"],),
+        "expected_tau_sq_diff": lambda: (args["point"],),
+        "predict_rate": lambda: (args["xs"],),
+        "latent": lambda: (args["xs"],),
+        "predict_proba": lambda: (args["xs"],),
+        "predict": lambda: (args["xs"],),
+        "init_stats": lambda: (args["shape"], torch.float32),
+        "update_stats": lambda: (args["stats"], args["y"]),
+        "pred_logpdf": lambda: (args["stats"], args["y"]),
+        "predictive": lambda: (models.NIGPosterior(**args["posterior"]), args["xs"]),
+    }.get(method, lambda: args.get(method, ()))()
+    if isinstance(attr, classmethod):
+        return getattr(cls, method)(*call)
+    return getattr(obj, method)(*call)
+
+
+def _on_device(torch, x, device):
+    """``x`` with every numpy array made the float32 tensor on ``device``
+    that numpy's rounding gives."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.array(x, np.float32, order="C")).to(device)
+    if isinstance(x, dict):
+        return {k: _on_device(torch, v, device) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_on_device(torch, v, device) for v in x)
+    return x
+
+
+def run_values_star(torch, dists, port_compile, core, device, flips) -> dict:
+    """The coin toss through ``CompiledInference``: the rule ``Beta(1 + y,
+    2 - y)`` a toss, the marginal times the prior ``Beta(1.0, 1.0)``, then its
+    entropy, KL to the prior and log normalizer; fed numpy and fed the tensors
+    on ``device``.  Checks the exact posterior ``Beta(1 + heads, 1 + tails)``,
+    the results bit for bit against the tensor-fed run, on ``device`` in
+    float32, and against float64 numpy on the first replicas."""
+    n, R = flips.shape
+    graph = core.BipartiteFactorGraph()
+    p = graph.add_variable(core.Variable(name="p"))
+    for i in range(n):
+        o = graph.add_variable(core.Variable(name="o", index=(i,)))
+        f = graph.add_factor(core.Factor(functional_form="bernoulli"))
+        graph.add_edge(p, f, core.Connection(label="out"))
+        graph.add_edge(o, f, core.Connection(label="out"))
+
+    class BetaBernoulliBatched(port_compile.BatchedProcessor):
+        def compute_message_to_variable(self, engine, variants, dep_values):
+            return dists.Beta(1.0 + dep_values[0], 2.0 - dep_values[0])
+
+    compiled = port_compile.CompiledInference(core.InferenceEngine(model_engine=graph), [p],
+                                              BetaBernoulliBatched())
+
+    def run(tosses, prior):
+        marginals, _ = compiled.run({s: tosses[i] for i, s in
+                                     enumerate(compiled.schedule.sources)})
+        post = marginals[p] * prior
+        return {"a": post.a, "b": post.b, "entropy": post.entropy(), "kl": post.kl(prior),
+                "log_normalizer": post.log_normalizer()}
+
+    one = torch.ones((), device=device)
+    start = time.perf_counter()
+    got = run(flips, dists.Beta(1.0, 1.0))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - start) * 1e3
+    want = run(_on_device(torch, flips, device), dists.Beta(one, one))
+    heads = flips.sum(axis=0)
+    exact = {"a": 1.0 + heads, "b": 1.0 + (n - heads)}
+    ref = numpy_beta_values(exact["a"][:N_VALUES_REF], exact["b"][:N_VALUES_REF])
+    check = {"path": "Beta-Bernoulli star", "replicas": R, "tosses": n, "ms": ms,
+             "against": "the tensor-fed run; Beta(1 + heads, 1 + tails); float64 numpy",
+             "max_abs_err": {}}
+    for key, g in got.items():
+        w = want[key]
+        if not (isinstance(g, torch.Tensor) and g.device == w.device and g.dtype == torch.float32
+                and g.shape == (R,)):
+            raise SmokeFailure(f"star {key}: {type(g).__name__} "
+                               f"{getattr(g, 'dtype', '')} {getattr(g, 'device', '')}")
+        if not torch.equal(g, w):
+            raise SmokeFailure(f"star {key} differs from the tensor-fed run")
+        if key in exact:
+            if not np.array_equal(g.cpu().numpy(), exact[key]):
+                raise SmokeFailure(f"star {key} is not the exact posterior's")
+        else:
+            check["max_abs_err"][key] = check_close(f"star {key}", g[:N_VALUES_REF], ref[key],
+                                                    VALUES_F64_TOL)
+    check["device"] = str(got["a"].device)
+    return check
+
+
+def run_values(torch, dists, models, device, data) -> list:
+    """Every public method and property of the distributions and of the
+    models' value types (:func:`value_methods`) on ``data``'s numpy, then on
+    the tensors on ``device`` that numpy's float32 rounding gives.  Each
+    result is what JAX gives: float64 numpy where JAX computes in numpy
+    (``NUMPY_RESULTS``), else a tensor on ``device`` of JAX's dtype, equal
+    bit for bit to the tensor-fed call.  Returns one check a class."""
+    from cortex_tpu_torch.utils.tree import tree_leaves
+
+    dev = torch.device(device, 0) if device != "cpu" else torch.device("cpu")
+    tensors = {k: _on_device(torch, v, device) for k, v in data.items()}
+    X, y = tensors["fit"]["X"], tensors["fit"]["y"]
+    built = {"GPPosterior": models.GP().fit(X, y),
+             "SGPRPosterior": models.SGPR().fit(X, y, X[:16]),
+             "GPCPosterior": models.GPClassifier(n_iters=10).fit(X, torch.sign(y))}
+    checks = []
+    for name in VALUE_DISTS + VALUE_MODELS:
+        cls = getattr(dists if name in VALUE_DISTS else models, name)
+        methods = value_methods(cls, VALUE_ENTRY_POINTS.get(name, ()))
+        check = {"class": name, "methods": len(methods), "numpy_results": [], "dtypes": set(),
+                 "devices": set(), "ms": 0.0, "bit_equal": True,
+                 "against": "the tensor-fed call"}
+        for method in methods:
+            label = f"{name}.{method}"
+            if device != "cpu":
+                torch.cuda.synchronize()
+            start = time.perf_counter()
+            got = _value_call(torch, dists, models, name, method, data[name], built, device)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            check["ms"] += (time.perf_counter() - start) * 1e3
+            want = _value_call(torch, dists, models, name, method, tensors[name], built, device)
+            got_leaves, want_leaves = tree_leaves(got), tree_leaves(want)
+            if len(got_leaves) != len(want_leaves):
+                raise SmokeFailure(f"{label}: {len(got_leaves)} leaves, not {len(want_leaves)}")
+            numpy_leaves = 0
+            for g, w in zip(got_leaves, want_leaves):
+                if not isinstance(w, torch.Tensor):
+                    if g != w:
+                        raise SmokeFailure(f"{label}: {g!r} is not {w!r}")
+                elif isinstance(g, (np.ndarray, np.generic)) and label in NUMPY_RESULTS:
+                    if g.dtype != np.float64:
+                        raise SmokeFailure(f"{label}: numpy {g.dtype}, not float64")
+                    numpy_leaves += 1
+                    check["dtypes"].add("numpy.float64")
+                else:
+                    dtype = VALUE_DTYPES.get(label, "torch.float32")
+                    if not (isinstance(g, torch.Tensor) and g.device == dev
+                            and str(g.dtype) == dtype):
+                        raise SmokeFailure(f"{label}: {type(g).__name__} "
+                                           f"{getattr(g, 'dtype', '')} on "
+                                           f"{getattr(g, 'device', '')}, not {dtype} on {dev}")
+                    if not torch.equal(g, w):
+                        raise SmokeFailure(f"{label} differs from the tensor-fed call")
+                    check["dtypes"].add(dtype)
+                    check["devices"].add(str(g.device))
+            if (numpy_leaves > 0) != (label in NUMPY_RESULTS):
+                raise SmokeFailure(f"{label}: {numpy_leaves} numpy results, where JAX gives "
+                                   f"{'some' if label in NUMPY_RESULTS else 'none'}")
+            if numpy_leaves:
+                check["numpy_results"].append(method)
+        check["dtypes"], check["devices"] = sorted(check["dtypes"]), sorted(check["devices"])
+        checks.append(check)
+    return checks
+
+
+def phase_values(torch, kernels, card: str) -> dict:
+    """Phase 25: the value layer fed Python and numpy values on the card
+    (:func:`run_values_star`, :func:`run_values`); no kernel of K1-K4 runs;
+    the phase's seconds against ``VALUES_BUDGET_S``."""
+    from cortex_tpu_torch import compile as port_compile, core, dists, models
+
+    data = values_data()
+    start = time.perf_counter()
+    _kernel_launches_zero(kernels)
+    star = run_values_star(torch, dists, port_compile, core, "cuda", data["flips"])
+    checks = run_values(torch, dists, models, "cuda", data)
+    seconds = time.perf_counter() - start
+    emit(phase="values", **star)
+    for check in checks:
+        emit(phase="values", replicas=VALUES_SHAPES["replicas"], **check)
+    launches = _check_no_kernel_launched(kernels, "values")
+    emit(phase="values", seconds=seconds, budget_s=VALUES_BUDGET_S, card=card,
+         methods=sum(c["methods"] for c in checks),
+         note="seconds include the tensor-fed comparison calls and the GP fits")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4368,6 +4732,7 @@ def main() -> None:
     phase_serve_times(torch, serving["servers"], device["nvidia_smi"])
     boundary = phase_boundary(torch, models, ops, kernels, serving["servers"]["lgssm"][0],
                               device["nvidia_smi"])
+    values = phase_values(torch, kernels, device["nvidia_smi"])
     # Each kernel's launches over every run of a main path that launches it;
     # on the serving path, those captured into its graphs (one a bucket, each
     # replayed per request).
@@ -4376,7 +4741,7 @@ def main() -> None:
     by_phase = {name: {"main path": count, **{
         f"parallel_main_path {world}": run["launches"][name] for world, run in worlds.items()},
         "serve_main_path, captured into its graphs": captured.get(name, 0),
-        "boundary": boundary[name]}
+        "boundary": boundary[name], "values": values[name]}
         for name, count in launches.items()}
     hmm_source = "cortex_tpu_torch/csrc/hmm_forward_backward.cu"
     print(json.dumps({"kernels": [

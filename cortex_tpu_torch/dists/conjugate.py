@@ -11,11 +11,18 @@ entropy, KL divergence, a stacked ``reduce_product`` and sampling:
 - Categorical/Bernoulli product: add log-probabilities,
 - Dirichlet product: ``Dir(α1+α2−1)``.
 
-``sample(key, shape)`` takes a ``torch.Generator`` on the tensors' device.
+``sample(key, shape)`` takes a ``torch.Generator`` on the values' device.
 PyTorch's own Gamma, Beta and Dirichlet samplers take no generator, so Gamma
 draws are made here by Marsaglia and Tsang's method, and Beta and Dirichlet
 draws from them.  Constructors given Python or numpy values make float32
 tensors, on the card unless the caller names another ``device``.
+
+A dataclass holds what it is given, as the JAX one does.  Its methods take
+fields and arguments of Python floats or numpy as the JAX package's do:
+converted (``as_values``: float32, on the first tensor's device, else the
+card) where JAX's first ``jnp`` call converts them, and left to numpy where
+JAX computes in plain numpy arithmetic (``as_operands``: ``mean`` and
+``variance`` of numpy fields, ``*`` and ``/`` of two numpy Betas, ...).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.special import digamma, gammaln
 
-from ..utils.tree import as_float32_tensor, input_device
+from ..utils.tree import as_operands, as_values
 
 __all__ = ["Beta", "Gamma", "Bernoulli", "Categorical", "Dirichlet"]
 
@@ -40,10 +47,6 @@ def betaln(a, b):
 def _softplus(x):
     """log(1 + eˣ), as ``jax.nn.softplus`` computes it."""
     return torch.logaddexp(x, torch.zeros_like(x))
-
-
-def _new_tensor(x, device):
-    return as_float32_tensor(x, input_device(x, device=device))
 
 
 def _shape(shape, batch):
@@ -83,41 +86,42 @@ class Beta:
 
     @property
     def mean(self) -> torch.Tensor:
-        return self.a / (self.a + self.b)
+        a, b = as_operands(self.a, self.b)
+        return a / (a + b)
 
     @property
     def variance(self) -> torch.Tensor:
-        s = self.a + self.b
-        return self.a * self.b / (s * s * (s + 1.0))
+        a, b = as_operands(self.a, self.b)
+        s = a + b
+        return a * b / (s * s * (s + 1.0))
 
     def __mul__(self, other: "Beta") -> "Beta":
-        return Beta(self.a + other.a - 1.0, self.b + other.b - 1.0)
+        a1, a2 = as_operands(self.a, other.a)
+        b1, b2 = as_operands(self.b, other.b)
+        return Beta(a1 + a2 - 1.0, b1 + b2 - 1.0)
 
     @classmethod
     def reduce_product(cls, stacked: "Beta", axis: int = 0) -> "Beta":
         """Product of k stacked Betas in ONE reduction: pairwise ``*`` is
         associative with the affine correction −(k−1) on both shapes."""
-        k = stacked.a.shape[axis]
-        return cls(
-            torch.sum(stacked.a, axis) - (k - 1.0),
-            torch.sum(stacked.b, axis) - (k - 1.0),
-        )
+        a, b = as_values(stacked.a, stacked.b)
+        k = a.shape[axis]
+        return cls(torch.sum(a, axis) - (k - 1.0), torch.sum(b, axis) - (k - 1.0))
 
     def __truediv__(self, other: "Beta") -> "Beta":
-        return Beta(self.a - other.a + 1.0, self.b - other.b + 1.0)
+        a1, a2 = as_operands(self.a, other.a)
+        b1, b2 = as_operands(self.b, other.b)
+        return Beta(a1 - a2 + 1.0, b1 - b2 + 1.0)
 
     def log_normalizer(self) -> torch.Tensor:
-        return betaln(self.a, self.b)
+        return betaln(*as_values(self.a, self.b))
 
     def logpdf(self, x) -> torch.Tensor:
-        return (
-            (self.a - 1.0) * torch.log(x)
-            + (self.b - 1.0) * torch.log1p(-x)
-            - betaln(self.a, self.b)
-        )
+        a, b, x = as_values(self.a, self.b, x)
+        return (a - 1.0) * torch.log(x) + (b - 1.0) * torch.log1p(-x) - betaln(a, b)
 
     def entropy(self) -> torch.Tensor:
-        a, b = self.a, self.b
+        a, b = as_values(self.a, self.b)
         return (
             betaln(a, b)
             - (a - 1.0) * digamma(a)
@@ -127,7 +131,7 @@ class Beta:
 
     def kl(self, other: "Beta") -> torch.Tensor:
         """KL(self ‖ other)."""
-        a1, b1, a2, b2 = self.a, self.b, other.a, other.b
+        a1, b1, a2, b2 = as_values(self.a, self.b, other.a, other.b)
         return (
             betaln(a2, b2)
             - betaln(a1, b1)
@@ -137,9 +141,10 @@ class Beta:
         )
 
     def sample(self, key: torch.Generator, shape: Tuple[int, ...] = ()) -> torch.Tensor:
-        batch = torch.broadcast_shapes(self.a.shape, self.b.shape)
-        x = _gamma_standard(self.a, _shape(shape, batch), key)
-        y = _gamma_standard(self.b, _shape(shape, batch), key)
+        a, b = as_values(self.a, self.b)
+        batch = torch.broadcast_shapes(a.shape, b.shape)
+        x = _gamma_standard(a, _shape(shape, batch), key)
+        y = _gamma_standard(b, _shape(shape, batch), key)
         return x / (x + y)
 
 
@@ -152,8 +157,7 @@ class Gamma:
 
     @classmethod
     def from_shape_scale(cls, shape, scale, device=None) -> "Gamma":
-        shape = _new_tensor(shape, device)
-        scale = _new_tensor(scale, shape.device)
+        shape, scale = as_values(shape, scale, device=device)
         return cls(shape, 1.0 / scale)
 
     @property
@@ -162,49 +166,51 @@ class Gamma:
 
     @property
     def mean(self) -> torch.Tensor:
-        return self.shape / self.rate
+        shape, rate = as_operands(self.shape, self.rate)
+        return shape / rate
 
     @property
     def variance(self) -> torch.Tensor:
-        return self.shape / (self.rate * self.rate)
+        shape, rate = as_operands(self.shape, self.rate)
+        return shape / (rate * rate)
 
     def mean_log(self) -> torch.Tensor:
         """E[log x] = ψ(α) − log β (used by VMP precision updates)."""
-        return digamma(self.shape) - torch.log(self.rate)
+        shape, rate = as_values(self.shape, self.rate)
+        return digamma(shape) - torch.log(rate)
 
     def __mul__(self, other: "Gamma") -> "Gamma":
-        return Gamma(self.shape + other.shape - 1.0, self.rate + other.rate)
+        a1, a2 = as_operands(self.shape, other.shape)
+        b1, b2 = as_operands(self.rate, other.rate)
+        return Gamma(a1 + a2 - 1.0, b1 + b2)
 
     @classmethod
     def reduce_product(cls, stacked: "Gamma", axis: int = 0) -> "Gamma":
         """Product of k stacked Gammas in ONE reduction (Σα − (k−1), Σβ)."""
-        k = stacked.shape.shape[axis]
-        return cls(
-            torch.sum(stacked.shape, axis) - (k - 1.0),
-            torch.sum(stacked.rate, axis),
-        )
+        shape, rate = as_values(stacked.shape, stacked.rate)
+        k = shape.shape[axis]
+        return cls(torch.sum(shape, axis) - (k - 1.0), torch.sum(rate, axis))
 
     def __truediv__(self, other: "Gamma") -> "Gamma":
-        return Gamma(self.shape - other.shape + 1.0, self.rate - other.rate)
+        a1, a2 = as_operands(self.shape, other.shape)
+        b1, b2 = as_operands(self.rate, other.rate)
+        return Gamma(a1 - a2 + 1.0, b1 - b2)
 
     def log_normalizer(self) -> torch.Tensor:
-        return gammaln(self.shape) - self.shape * torch.log(self.rate)
+        a, b = as_values(self.shape, self.rate)
+        return gammaln(a) - a * torch.log(b)
 
     def logpdf(self, x) -> torch.Tensor:
-        return (
-            self.shape * torch.log(self.rate)
-            - gammaln(self.shape)
-            + (self.shape - 1.0) * torch.log(x)
-            - self.rate * x
-        )
+        a, b, x = as_values(self.shape, self.rate, x)
+        return a * torch.log(b) - gammaln(a) + (a - 1.0) * torch.log(x) - b * x
 
     def entropy(self) -> torch.Tensor:
-        a = self.shape
-        return a - torch.log(self.rate) + gammaln(a) + (1.0 - a) * digamma(a)
+        a, b = as_values(self.shape, self.rate)
+        return a - torch.log(b) + gammaln(a) + (1.0 - a) * digamma(a)
 
     def kl(self, other: "Gamma") -> torch.Tensor:
         """KL(self ‖ other)."""
-        a1, b1, a2, b2 = self.shape, self.rate, other.shape, other.rate
+        a1, b1, a2, b2 = as_values(self.shape, self.rate, other.shape, other.rate)
         return (
             (a1 - a2) * digamma(a1)
             - gammaln(a1)
@@ -214,8 +220,8 @@ class Gamma:
         )
 
     def sample(self, key: torch.Generator, shape: Tuple[int, ...] = ()) -> torch.Tensor:
-        batch = self.shape.shape
-        return _gamma_standard(self.shape, _shape(shape, batch), key) / self.rate
+        alpha, rate = as_values(self.shape, self.rate)
+        return _gamma_standard(alpha, _shape(shape, alpha.shape), key) / rate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,12 +232,12 @@ class Bernoulli:
 
     @classmethod
     def from_prob(cls, p, device=None) -> "Bernoulli":
-        p = _new_tensor(p, device)
+        (p,) = as_values(p, device=device)
         return cls(torch.log(p) - torch.log1p(-p))
 
     @property
     def prob(self) -> torch.Tensor:
-        return torch.sigmoid(self.logit)
+        return torch.sigmoid(*as_values(self.logit))
 
     @property
     def mean(self) -> torch.Tensor:
@@ -243,18 +249,20 @@ class Bernoulli:
         return p * (1.0 - p)
 
     def __mul__(self, other: "Bernoulli") -> "Bernoulli":
-        return Bernoulli(self.logit + other.logit)
+        x, y = as_operands(self.logit, other.logit)
+        return Bernoulli(x + y)
 
     @classmethod
     def reduce_product(cls, stacked: "Bernoulli", axis: int = 0) -> "Bernoulli":
         """Product of k stacked Bernoullis in ONE reduction (Σ logit)."""
-        return cls(torch.sum(stacked.logit, axis))
+        return cls(torch.sum(*as_values(stacked.logit), axis))
 
     def __truediv__(self, other: "Bernoulli") -> "Bernoulli":
-        return Bernoulli(self.logit - other.logit)
+        x, y = as_operands(self.logit, other.logit)
+        return Bernoulli(x - y)
 
     def log_normalizer(self) -> torch.Tensor:
-        return _softplus(self.logit)
+        return _softplus(*as_values(self.logit))
 
     def entropy(self) -> torch.Tensor:
         p = self.prob
@@ -262,13 +270,14 @@ class Bernoulli:
 
     def kl(self, other: "Bernoulli") -> torch.Tensor:
         """KL(self ‖ other) via the softplus log-normalizers."""
-        p = self.prob
-        return p * (self.logit - other.logit) - _softplus(self.logit) + _softplus(other.logit)
+        x, y = as_values(self.logit, other.logit)
+        return torch.sigmoid(x) * (x - y) - _softplus(x) + _softplus(y)
 
     def sample(self, key: torch.Generator, shape: Tuple[int, ...] = ()) -> torch.Tensor:
-        u = torch.rand(_shape(shape, self.logit.shape), generator=key,
-                       dtype=self.logit.dtype, device=self.logit.device)
-        return u < self.prob
+        (logit,) = as_values(self.logit)
+        u = torch.rand(_shape(shape, logit.shape), generator=key, dtype=logit.dtype,
+                       device=logit.device)
+        return u < torch.sigmoid(logit)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,49 +292,51 @@ class Categorical:
 
     @classmethod
     def from_probs(cls, p, device=None) -> "Categorical":
-        return cls(torch.log(_new_tensor(p, device)))
+        return cls(torch.log(*as_values(p, device=device)))
 
     @property
     def probs(self) -> torch.Tensor:
-        return torch.softmax(self.logits, dim=-1)
+        return torch.softmax(*as_values(self.logits), dim=-1)
 
     @property
     def mean(self) -> torch.Tensor:
         return self.probs
 
     def __mul__(self, other: "Categorical") -> "Categorical":
-        return Categorical(self.logits + other.logits)
+        x, y = as_operands(self.logits, other.logits)
+        return Categorical(x + y)
 
     @classmethod
     def reduce_product(cls, stacked: "Categorical", axis: int = 0) -> "Categorical":
         """Product of k stacked Categoricals in ONE reduction (Σ logits)."""
-        return cls(torch.sum(stacked.logits, axis))
+        return cls(torch.sum(*as_values(stacked.logits), axis))
 
     def __truediv__(self, other: "Categorical") -> "Categorical":
-        return Categorical(self.logits - other.logits)
+        x, y = as_operands(self.logits, other.logits)
+        return Categorical(x - y)
 
     def log_normalizer(self) -> torch.Tensor:
-        return torch.logsumexp(self.logits, dim=-1)
+        return torch.logsumexp(*as_values(self.logits), dim=-1)
 
     def entropy(self) -> torch.Tensor:
-        p = self.probs
-        logp = F.log_softmax(self.logits, dim=-1)
+        (logits,) = as_values(self.logits)
+        p = torch.softmax(logits, dim=-1)
+        logp = F.log_softmax(logits, dim=-1)
         return -torch.sum(p * logp, dim=-1)
 
     def kl(self, other: "Categorical") -> torch.Tensor:
-        p = self.probs
-        return torch.sum(
-            p * (F.log_softmax(self.logits, dim=-1) - F.log_softmax(other.logits, dim=-1)),
-            dim=-1,
-        )
+        x, y = as_values(self.logits, other.logits)
+        p = torch.softmax(x, dim=-1)
+        return torch.sum(p * (F.log_softmax(x, dim=-1) - F.log_softmax(y, dim=-1)), dim=-1)
 
     def sample(self, key: torch.Generator, shape: Tuple[int, ...] = ()) -> torch.Tensor:
         """Class indices of shape ``shape + logits.shape[:-1]``, int32 as JAX
         returns them, by the Gumbel-max trick."""
-        u = torch.rand(_shape(shape, self.logits.shape), generator=key,
-                       dtype=self.logits.dtype, device=self.logits.device)
+        (logits,) = as_values(self.logits)
+        u = torch.rand(_shape(shape, logits.shape), generator=key, dtype=logits.dtype,
+                       device=logits.device)
         gumbel = -torch.log(-torch.log(u))
-        return torch.argmax(self.logits + gumbel, dim=-1).to(torch.int32)
+        return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,40 +347,45 @@ class Dirichlet:
 
     @property
     def mean(self) -> torch.Tensor:
-        return self.alpha / torch.sum(self.alpha, dim=-1, keepdim=True)
+        (alpha,) = as_values(self.alpha)
+        return alpha / torch.sum(alpha, dim=-1, keepdim=True)
 
     def mean_log(self) -> torch.Tensor:
         """E[log x_k] = ψ(α_k) − ψ(Σα) (drives Categorical VMP messages)."""
-        return digamma(self.alpha) - digamma(torch.sum(self.alpha, dim=-1, keepdim=True))
+        (alpha,) = as_values(self.alpha)
+        return digamma(alpha) - digamma(torch.sum(alpha, dim=-1, keepdim=True))
 
     def __mul__(self, other: "Dirichlet") -> "Dirichlet":
-        return Dirichlet(self.alpha + other.alpha - 1.0)
+        a1, a2 = as_operands(self.alpha, other.alpha)
+        return Dirichlet(a1 + a2 - 1.0)
 
     @classmethod
     def reduce_product(cls, stacked: "Dirichlet", axis: int = 0) -> "Dirichlet":
         """Product of k stacked Dirichlets in ONE reduction (Σα − (k−1))."""
-        k = stacked.alpha.shape[axis]
-        return cls(torch.sum(stacked.alpha, dim=axis) - (k - 1.0))
+        (alpha,) = as_values(stacked.alpha)
+        return cls(torch.sum(alpha, dim=axis) - (alpha.shape[axis] - 1.0))
 
     def __truediv__(self, other: "Dirichlet") -> "Dirichlet":
-        return Dirichlet(self.alpha - other.alpha + 1.0)
+        a1, a2 = as_operands(self.alpha, other.alpha)
+        return Dirichlet(a1 - a2 + 1.0)
 
     def log_normalizer(self) -> torch.Tensor:
-        return torch.sum(gammaln(self.alpha), dim=-1) - gammaln(torch.sum(self.alpha, dim=-1))
+        (alpha,) = as_values(self.alpha)
+        return torch.sum(gammaln(alpha), dim=-1) - gammaln(torch.sum(alpha, dim=-1))
 
     def entropy(self) -> torch.Tensor:
-        a = self.alpha
+        (a,) = as_values(self.alpha)
         a0 = torch.sum(a, dim=-1)
         k = a.shape[-1]
         return (
-            self.log_normalizer()
+            Dirichlet(a).log_normalizer()
             + (a0 - k) * digamma(a0)
             - torch.sum((a - 1.0) * digamma(a), dim=-1)
         )
 
     def kl(self, other: "Dirichlet") -> torch.Tensor:
         """KL(self ‖ other) along the last axis."""
-        a1, a2 = self.alpha, other.alpha
+        a1, a2 = as_values(self.alpha, other.alpha)
         s1 = torch.sum(a1, dim=-1)
         return (
             gammaln(s1)
@@ -382,5 +398,6 @@ class Dirichlet:
     def sample(self, key: torch.Generator, shape: Tuple[int, ...] = ()) -> torch.Tensor:
         """Points on the simplex of shape ``shape + alpha.shape``: normalized
         Gamma(α_k, 1) draws."""
-        g = _gamma_standard(self.alpha, _shape(shape, self.alpha.shape), key)
+        (alpha,) = as_values(self.alpha)
+        g = _gamma_standard(alpha, _shape(shape, alpha.shape), key)
         return g / torch.sum(g, dim=-1, keepdim=True)

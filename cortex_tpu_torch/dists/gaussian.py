@@ -8,8 +8,10 @@ the end.
 
 Dtype follows the inputs.  Python and numpy values become float32 tensors,
 as ``jnp.asarray`` makes them with 64-bit types off; constructors given no
-tensor put them on the card unless the caller names another ``device``.
-``sample`` takes a ``torch.Generator`` on the tensors' device.
+tensor put them on the card unless the caller names another ``device``;
+the methods take Python and numpy fields and arguments as
+``dists.conjugate``'s do.  ``sample`` takes a ``torch.Generator`` on the
+values' device.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from ..utils.tree import as_float32_tensor, input_device
+from ..utils.tree import as_operands, as_values
 
 __all__ = [
     "Gaussian",
@@ -32,11 +34,6 @@ __all__ = [
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
-
-
-def _tensors(*xs, device=None):
-    dev = input_device(*xs, device=device)
-    return tuple(as_float32_tensor(x, dev) for x in xs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +49,8 @@ class Gaussian:
     # -- moments -------------------------------------------------------------
     @property
     def mean(self) -> torch.Tensor:
-        return self.xi / self.w
+        xi, w = as_operands(self.xi, self.w)
+        return xi / w
 
     @property
     def variance(self) -> torch.Tensor:
@@ -65,52 +63,60 @@ class Gaussian:
     # -- algebra -------------------------------------------------------------
     def __mul__(self, other: "Gaussian") -> "Gaussian":
         """Product of densities (unnormalized): add natural parameters."""
-        return Gaussian(self.xi + other.xi, self.w + other.w)
+        xi1, xi2 = as_operands(self.xi, other.xi)
+        w1, w2 = as_operands(self.w, other.w)
+        return Gaussian(xi1 + xi2, w1 + w2)
 
     @classmethod
     def reduce_product(cls, stacked: "Gaussian", axis: int = 0) -> "Gaussian":
         """Product of k stacked Gaussians in ONE reduction — natural
         parameters are additive, so the fold is a plain sum."""
-        return cls(torch.sum(stacked.xi, axis), torch.sum(stacked.w, axis))
+        xi, w = as_values(stacked.xi, stacked.w)
+        return cls(torch.sum(xi, axis), torch.sum(w, axis))
 
     def __truediv__(self, other: "Gaussian") -> "Gaussian":
         """Density quotient: subtract natural parameters (cavity products)."""
-        return Gaussian(self.xi - other.xi, self.w - other.w)
+        xi1, xi2 = as_operands(self.xi, other.xi)
+        w1, w2 = as_operands(self.w, other.w)
+        return Gaussian(xi1 - xi2, w1 - w2)
 
     def log_normalizer(self) -> torch.Tensor:
         """log ∫ exp(xi·x − w·x²/2) dx = xi²/(2w) + ½·log(2π/w)."""
-        return 0.5 * (self.xi**2 / self.w + torch.log(2.0 * math.pi / self.w))
+        xi, w = as_values(self.xi, self.w)
+        return 0.5 * (xi**2 / w + torch.log(2.0 * math.pi / w))
 
     def logpdf(self, x) -> torch.Tensor:
-        return -0.5 * (self.w * (x - self.mean) ** 2 + _LOG_2PI - torch.log(self.w))
+        xi, w, x = as_values(self.xi, self.w, x)
+        return -0.5 * (w * (x - xi / w) ** 2 + _LOG_2PI - torch.log(w))
 
     def entropy(self) -> torch.Tensor:
-        return 0.5 * (1.0 + _LOG_2PI - torch.log(self.w))
+        (w,) = as_values(self.w, like=self)
+        return 0.5 * (1.0 + _LOG_2PI - torch.log(w))
 
     def kl(self, other: "Gaussian") -> torch.Tensor:
         """KL(self ‖ other)."""
-        m, v = self.mean, self.variance
-        mo, vo = other.mean, other.variance
+        xi, w, xio, wo = as_values(self.xi, self.w, other.xi, other.w)
+        m, v = xi / w, 1.0 / w
+        mo, vo = xio / wo, 1.0 / wo
         return 0.5 * (torch.log(vo / v) + (v + (m - mo) ** 2) / vo - 1.0)
 
     def sample(self, key: torch.Generator, shape: Tuple[int, ...] = ()) -> torch.Tensor:
-        eps = torch.randn(
-            tuple(shape) + tuple(self.xi.shape), generator=key,
-            dtype=self.xi.dtype, device=self.xi.device,
-        )
-        return self.mean + eps * torch.sqrt(self.variance)
+        xi, w = as_values(self.xi, self.w)
+        eps = torch.randn(tuple(shape) + tuple(xi.shape), generator=key, dtype=xi.dtype,
+                          device=xi.device)
+        return xi / w + eps * torch.sqrt(1.0 / w)
 
 
 def from_mean_variance(mean, variance, device=None) -> Gaussian:
     """Construct from (μ, σ²) — the reference's ``NormalMeanVariance``."""
-    mean, variance = _tensors(mean, variance, device=device)
+    mean, variance = as_values(mean, variance, device=device)
     w = 1.0 / variance
     return Gaussian(mean * w, w)
 
 
 def from_mean_precision(mean, precision, device=None) -> Gaussian:
     """Construct from (μ, w) — the reference's ``NormalMeanPrecision``."""
-    mean, precision = _tensors(mean, precision, device=device)
+    mean, precision = as_values(mean, precision, device=device)
     return Gaussian(mean * precision, precision)
 
 
@@ -184,65 +190,71 @@ class MvGaussian:
 
     @property
     def mean(self) -> torch.Tensor:
-        return _spd_solve_logdet(self.W, self.xi[..., None])[0][..., 0]
+        xi, W = as_values(self.xi, self.W)
+        return _spd_solve_logdet(W, xi[..., None])[0][..., 0]
 
     @property
     def cov(self) -> torch.Tensor:
-        return _spd_inv(self.W)
+        return _spd_inv(*as_values(self.W, like=self))
 
     @property
     def precision(self) -> torch.Tensor:
         return self.W
 
     def __mul__(self, other: "MvGaussian") -> "MvGaussian":
-        return MvGaussian(self.xi + other.xi, self.W + other.W)
+        xi1, xi2 = as_operands(self.xi, other.xi)
+        W1, W2 = as_operands(self.W, other.W)
+        return MvGaussian(xi1 + xi2, W1 + W2)
 
     @classmethod
     def reduce_product(cls, stacked: "MvGaussian", axis: int = 0) -> "MvGaussian":
         """Product of k stacked MvGaussians in ONE reduction (natural
         parameters additive)."""
-        return cls(torch.sum(stacked.xi, axis), torch.sum(stacked.W, axis))
+        xi, W = as_values(stacked.xi, stacked.W)
+        return cls(torch.sum(xi, axis), torch.sum(W, axis))
 
     def __truediv__(self, other: "MvGaussian") -> "MvGaussian":
-        return MvGaussian(self.xi - other.xi, self.W - other.W)
+        xi1, xi2 = as_operands(self.xi, other.xi)
+        W1, W2 = as_operands(self.W, other.W)
+        return MvGaussian(xi1 - xi2, W1 - W2)
 
     def log_normalizer(self) -> torch.Tensor:
-        d = self.dim
-        sol, logdet = _spd_solve_logdet(self.W, self.xi[..., None])
+        xi, W = as_values(self.xi, self.W)
+        sol, logdet = _spd_solve_logdet(W, xi[..., None])
         return 0.5 * (
-            torch.einsum("...i,...i->...", self.xi, sol[..., 0]) + d * _LOG_2PI - logdet
+            torch.einsum("...i,...i->...", xi, sol[..., 0]) + self.dim * _LOG_2PI - logdet
         )
 
     def entropy(self) -> torch.Tensor:
         d = self.dim
-        eye = torch.eye(d, dtype=self.W.dtype, device=self.W.device).expand(self.W.shape)
-        _, logdet = _spd_solve_logdet(self.W, eye[..., :1])
+        (W,) = as_values(self.W, like=self)
+        eye = torch.eye(d, dtype=W.dtype, device=W.device).expand(W.shape)
+        _, logdet = _spd_solve_logdet(W, eye[..., :1])
         return 0.5 * (d * (1.0 + _LOG_2PI) - logdet)
 
     def logpdf(self, x) -> torch.Tensor:
-        d = self.dim
-        sol, logdet = _spd_solve_logdet(self.W, self.xi[..., None])
+        xi, W, x = as_values(self.xi, self.W, x)
+        sol, logdet = _spd_solve_logdet(W, xi[..., None])
         diff = x - sol[..., 0]
-        quad = torch.einsum("...i,...ij,...j->...", diff, self.W, diff)
-        return -0.5 * (quad + d * _LOG_2PI - logdet)
+        quad = torch.einsum("...i,...ij,...j->...", diff, W, diff)
+        return -0.5 * (quad + self.dim * _LOG_2PI - logdet)
 
     def sample(self, key: torch.Generator, shape: Tuple[int, ...] = ()) -> torch.Tensor:
-        chol = _cholesky_nan(self.cov)
-        eps = torch.randn(
-            tuple(shape) + tuple(self.xi.shape), generator=key,
-            dtype=self.xi.dtype, device=self.xi.device,
-        )
-        return self.mean + torch.einsum("...ij,...j->...i", chol, eps)
+        g = MvGaussian(*as_values(self.xi, self.W))
+        chol = _cholesky_nan(g.cov)
+        eps = torch.randn(tuple(shape) + tuple(g.xi.shape), generator=key, dtype=g.xi.dtype,
+                          device=g.xi.device)
+        return g.mean + torch.einsum("...ij,...j->...i", chol, eps)
 
 
 def mv_from_mean_precision(mean, precision, device=None) -> MvGaussian:
     """Construct from (mean ``(..., d)``, precision ``(..., d, d)``)."""
-    mean, precision = _tensors(mean, precision, device=device)
+    mean, precision = as_values(mean, precision, device=device)
     xi = torch.einsum("...ij,...j->...i", precision, mean)
     return MvGaussian(xi, precision)
 
 
 def mv_from_mean_cov(mean, cov, device=None) -> MvGaussian:
     """Construct from (mean ``(..., d)``, covariance ``(..., d, d)``)."""
-    mean, cov = _tensors(mean, cov, device=device)
+    mean, cov = as_values(mean, cov, device=device)
     return mv_from_mean_precision(mean, _spd_inv(cov))

@@ -27,7 +27,7 @@ from typing import NamedTuple, Union
 
 import torch
 
-from ..utils.tree import as_float32_tensor, input_device
+from ..utils.tree import as_float32_tensor, as_operands, as_values, input_device
 
 __all__ = ["BOCPD", "GaussianNIG", "BernoulliBeta", "BOCPDResult"]
 
@@ -48,16 +48,18 @@ class GaussianNIG:
     beta0: float = 1.0
 
     def init_stats(self, shape, dtype, device=None):
-        z = torch.zeros(shape, dtype=dtype, device=device)
+        z = torch.zeros(shape, dtype=dtype, device=input_device(device=device))
         return (z, z, z)  # (n, Σ(y−μ0), Σ(y−μ0)²)
 
     def update_stats(self, stats, y):
         n, s, q = stats
         yc = y[..., None] - self.mu0
-        return (n + 1.0, s + yc, q + yc * yc)
+        s, ys = as_operands(s, yc)
+        q, yq = as_operands(q, yc)
+        return (n + 1.0, s + ys, q + yq * yq)
 
     def pred_logpdf(self, stats, y):
-        n, s, q = stats
+        n, s, q, y = as_values(*stats, y)
         y = y[..., None]
         kappa = self.kappa0 + n
         delta = s / kappa  # = mu − mu0; division-safe (kappa ≥ kappa0 > 0)
@@ -86,16 +88,16 @@ class BernoulliBeta:
     b0: float = 1.0
 
     def init_stats(self, shape, dtype, device=None):
-        z = torch.zeros(shape, dtype=dtype, device=device)
+        z = torch.zeros(shape, dtype=dtype, device=input_device(device=device))
         return (z, z)  # (#ones, #zeros)
 
     def update_stats(self, stats, y):
-        ones, zeros = stats
-        y = y[..., None]
-        return (ones + y, zeros + (1.0 - y))
+        ones, y1 = as_operands(stats[0], y[..., None])
+        zeros, y0 = as_operands(stats[1], 1.0 - y[..., None])
+        return (ones + y1, zeros + y0)
 
     def pred_logpdf(self, stats, y):
-        ones, zeros = stats
+        ones, zeros, y = as_values(*stats, y)
         y = y[..., None]
         p1 = (self.a0 + ones) / (self.a0 + self.b0 + ones + zeros)
         return torch.where(y > 0.5, torch.log(p1), torch.log1p(-p1))

@@ -20,7 +20,7 @@ import torch
 
 from ..ops.chains import scalar_kalman_update
 from ..ops.chains_mv import mv_lgssm_log_evidence
-from ..utils.tree import as_tensors
+from ..utils.tree import as_tensors, as_values
 from .hgf import HGF
 
 __all__ = [
@@ -45,11 +45,11 @@ class LGSSMParams(NamedTuple):
 
     @property
     def Q(self) -> torch.Tensor:
-        return torch.exp(self.log_Q)
+        return torch.exp(*as_values(self.log_Q, like=self))
 
     @property
     def R(self) -> torch.Tensor:
-        return torch.exp(self.log_R)
+        return torch.exp(*as_values(self.log_R, like=self))
 
 
 def _scalar(value, like: torch.Tensor) -> torch.Tensor:
@@ -228,11 +228,11 @@ class MvLGSSMParams(NamedTuple):
 
     @property
     def Q(self) -> torch.Tensor:
-        return self._expand(self.q_chol)
+        return self._expand(*as_values(self.q_chol, like=self))
 
     @property
     def R(self) -> torch.Tensor:
-        return self._expand(self.r_chol)
+        return self._expand(*as_values(self.r_chol, like=self))
 
 
 def fit_mv_lgssm_ml(

@@ -22,7 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.ep import EPResult, ep_linear_model, gauss_hermite_tilted
-from ..utils.tree import as_float32_tensor, input_device
+from ..utils.tree import as_float32_tensor, as_operands, as_values, input_device
 
 __all__ = [
     "BayesianLinearRegression",
@@ -47,12 +47,14 @@ class NIGPosterior(NamedTuple):
     @property
     def noise_mean(self) -> torch.Tensor:
         """Posterior mean of σ² (requires a > 1)."""
-        return self.b / (self.a - 1.0)
+        b, a = as_operands(self.b, self.a)
+        return b / (a - 1.0)
 
     @property
     def coeff_cov(self) -> torch.Tensor:
         """Marginal coefficient covariance E[σ²]·V_n (a > 1)."""
-        return self.noise_mean[..., None, None] * self.cov_scale
+        noise, cov_scale = as_operands(self.noise_mean, self.cov_scale)
+        return noise[..., None, None] * cov_scale
 
 
 def nig_fit(X, t, prior_scale: float = 100.0, a0: float = 2.0, b0: float = 1.0) -> NIGPosterior:
@@ -106,17 +108,17 @@ class BayesianLinearRegression:
         """Student-t posterior predictive at ``(m, d)`` test points:
         ``(mean, scale², dof)`` with dof = 2a, so that moments stay exact
         (the variance is ``scale² · dof/(dof-2)``)."""
-        Xs = torch.atleast_2d(as_float32_tensor(Xs, posterior.mean.device))
-        mean = Xs @ posterior.mean
-        scale2 = (posterior.b / posterior.a) * (
-            1.0 + torch.sum((Xs @ posterior.cov_scale) * Xs, dim=-1)
-        )
-        return mean, scale2, 2.0 * posterior.a
+        w, V, Xs = as_values(posterior.mean, posterior.cov_scale, Xs, like=posterior)
+        Xs = torch.atleast_2d(Xs)
+        b, a, quad = as_operands(posterior.b, posterior.a,
+                                 1.0 + torch.sum((Xs @ V) * Xs, dim=-1))
+        return Xs @ w, (b / a) * quad, 2.0 * posterior.a
 
 
 def _latent(mean, cov, Xs):
     """Mean and variance of ``x·w`` at ``(m, d)`` inputs under ``N(mean, cov)``."""
-    Xs = torch.atleast_2d(as_float32_tensor(Xs, mean.device))
+    mean, cov, Xs = as_values(mean, cov, Xs)
+    Xs = torch.atleast_2d(Xs)
     return Xs @ mean, torch.sum((Xs @ cov) * Xs, dim=-1)
 
 

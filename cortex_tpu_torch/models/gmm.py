@@ -27,7 +27,7 @@ import torch
 from torch.special import digamma, gammaln
 
 from ..ops.chains import _full_float32_matmul
-from ..utils.tree import as_tensors
+from ..utils.tree import as_operands, as_tensors, as_values
 
 __all__ = ["GMM", "GMMPosterior", "GMMResult"]
 
@@ -45,7 +45,8 @@ class GMMPosterior(NamedTuple):
 
     @property
     def weights(self) -> torch.Tensor:
-        return self.alpha / torch.sum(self.alpha, dim=-1, keepdim=True)
+        (alpha,) = as_values(self.alpha, like=self)
+        return alpha / torch.sum(alpha, dim=-1, keepdim=True)
 
     @property
     def means(self) -> torch.Tensor:
@@ -53,7 +54,8 @@ class GMMPosterior(NamedTuple):
 
     @property
     def precisions(self) -> torch.Tensor:
-        return self.a / self.b
+        a, b = as_operands(self.a, self.b)
+        return a / b
 
 
 class GMMResult(NamedTuple):

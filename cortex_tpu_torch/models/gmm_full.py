@@ -21,7 +21,7 @@ from torch.special import digamma, gammaln, multigammaln
 
 from ..dists.gaussian import _spd_inv, _spd_logdet
 from ..ops.chains import _full_float32_matmul
-from ..utils.tree import as_tensors
+from ..utils.tree import as_operands, as_tensors, as_values
 from .gmm import _trace, initial_means
 
 __all__ = ["GMMFull", "GMMFullPosterior", "GMMFullResult"]
@@ -56,7 +56,8 @@ class GMMFullPosterior(NamedTuple):
 
     @property
     def weights(self) -> torch.Tensor:
-        return self.alpha / torch.sum(self.alpha, dim=-1, keepdim=True)
+        (alpha,) = as_values(self.alpha, like=self)
+        return alpha / torch.sum(alpha, dim=-1, keepdim=True)
 
     @property
     def means(self) -> torch.Tensor:
@@ -64,16 +65,17 @@ class GMMFullPosterior(NamedTuple):
 
     @property
     def expected_precisions(self) -> torch.Tensor:
-        return self.nu[..., None, None] * self.W
+        nu, W = as_operands(self.nu, self.W)
+        return nu[..., None, None] * W
 
     @property
     def expected_covariances(self) -> torch.Tensor:
         """E[Σ_k] under the Wishart posterior: ``W_k^-1 / (ν_k − D − 1)``
         (defined for ν > D + 1; the divisor is clamped positive, so values for
         barely-populated components are upper bounds)."""
-        D = self.W.shape[-1]
-        divisor = torch.clamp(self.nu - D - 1.0, min=1e-6)
-        return _spd_inv(self.W) / divisor[..., None, None]
+        W, nu = as_values(self.W, self.nu, like=self)
+        divisor = torch.clamp(nu - W.shape[-1] - 1.0, min=1e-6)
+        return _spd_inv(W) / divisor[..., None, None]
 
 
 class GMMFullResult(NamedTuple):

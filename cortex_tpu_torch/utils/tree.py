@@ -33,6 +33,8 @@ __all__ = [
     "input_device",
     "as_float32_tensor",
     "as_tensors",
+    "as_values",
+    "as_operands",
     "to_tensor",
     "stack",
     "concatenate",
@@ -257,6 +259,29 @@ def as_tensors(*xs: Any, device=None, default=None) -> Tuple[Any, ...]:
             x = as_float32_tensor(x, dev)
         out.append(x)
     return tuple(out)
+
+
+def as_values(*xs: Any, device=None, like: Any = ()) -> Tuple[Any, ...]:
+    """``xs`` as the JAX package's first ``jnp`` call takes them in a
+    distribution's constructor or method: every one that is not a tensor
+    (numpy arrays of any stride, numpy and Python scalars) made a tensor by
+    :func:`as_float32_tensor` on the device that :func:`input_device` picks
+    for ``device``, ``xs`` and the leaves of ``like`` (the object's other
+    fields); tensors and ``None`` as given."""
+    if all(isinstance(x, torch.Tensor) for x in xs):
+        return xs
+    dev = input_device(*xs, *tree_leaves(like), device=device)
+    return tuple(x if x is None else as_float32_tensor(x, dev) for x in xs)
+
+
+def as_operands(*xs: Any) -> Tuple[Any, ...]:
+    """``xs`` as JAX's plain arithmetic takes them: as given when none is a
+    tensor (numpy computes them, in float64, as it does under JAX), else
+    by :func:`as_tensors` (numpy arrays join the first tensor's device;
+    Python numbers stay numbers, which torch takes as JAX takes them)."""
+    if not any(isinstance(x, torch.Tensor) for x in xs):
+        return xs
+    return as_tensors(*xs)
 
 
 def _tensors(xs: Sequence[Any]) -> List[torch.Tensor]:

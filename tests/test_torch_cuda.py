@@ -21,7 +21,9 @@ CPU at 1e-5 and rtol 1e-4 (atol 1e-6).  So do the Gaussian mixtures and the
 vector chains, held against the CPU at 1e-4, and the rest of the zoo
 (chip_smoke's zoo calls at a small size), against the CPU at chip_smoke's
 ZOO_TOL["cpu"] (atol 1e-4, rtol 1e-3); HMC draws from the card's generator,
-so it is held to its target's moments instead.
+so it is held to its target's moments instead.  The value layer fed Python
+and numpy values (chip_smoke's value phase at a small size) gives, bit for
+bit, what its tensor-fed calls give.
 """
 
 import importlib.util
@@ -626,3 +628,38 @@ def test_numpy_inputs_run_on_the_card_as_the_tensor_call(cuda):
     launched = {k: sum(c["launches"].get(k, 0) for c in checks) for k in kernels.LAUNCHES}
     assert launched == smoke.BOUNDARY_LAUNCHES
     assert all(c["bit_equal"] and c["devices"] == ["cuda:0"] for c in checks)
+
+
+@pytest.mark.cuda
+def test_values_fed_python_and_numpy_compute_on_the_card(cuda):
+    """chip_smoke.py's value phase at a small size: the coin toss fed numpy
+    with a prior of Python floats, and every method of every distribution
+    and value type of the models fed numpy, on the card, bit for bit what
+    the tensor-fed call gives, launching none of K1-K4."""
+    from cortex_tpu_torch import compile as port_compile, core, dists
+
+    smoke = _chip_smoke()
+    for key in kernels.LAUNCHES:
+        kernels.LAUNCHES[key] = 0
+    data = smoke.values_data({"star": (500, 20), "replicas": 300, "K": 8, "d": 4,
+                              "window": 16, "fit": 64, "gp": 256})
+    star = smoke.run_values_star(torch, dists, port_compile, core, "cuda", data["flips"])
+    assert star["device"] == "cuda:0"
+    checks = smoke.run_values(torch, dists, models, "cuda", data)
+    assert all(c["bit_equal"] and set(c["devices"]) <= {"cuda:0"} for c in checks)
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_draws_of_python_values_follow_the_device_rule(cuda):
+    """A draw from Python floats is made where the values go, on the card: a
+    generator there draws float32 of the shape JAX gives; a CPU generator
+    is refused as it is for tensor fields on the card, never moved."""
+    from cortex_tpu_torch import dists
+
+    draw = dists.Beta(2.0, 3.0).sample(torch.Generator("cuda").manual_seed(0), (4,))
+    assert draw.device.type == "cuda" and draw.dtype == torch.float32 and draw.shape == (4,)
+    with pytest.raises(RuntimeError):
+        dists.Beta(2.0, 3.0).sample(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError):
+        dists.Beta(torch.full((3,), 2.0, device=cuda), 3.0).sample(torch.Generator())
