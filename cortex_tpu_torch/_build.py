@@ -7,7 +7,10 @@ The library lands in ``build/cortex_tpu_torch/`` at the root of the checkout
 (git-ignored) unless :func:`set_build_dir` names another directory, named
 by a hash of the sources, the flags and the ``nvcc`` version, so an edit or
 another toolkit builds anew and an unchanged tree loads what is there.
-Nothing is compiled when the package is imported.
+Nothing is compiled when the package is imported.  The first :func:`load`
+of a process is the set-up span ``setup.kernel_build``
+(:mod:`~cortex_tpu_torch.utils.spans`): the ``nvcc`` probe, a build where
+the library is missing, and the ``dlopen``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import List, Sequence
+
+from .utils import spans
 
 __all__ = [
     "BUILD_DIR", "NVCC_FLAGS", "compile_command", "find_nvcc", "library_name", "library_path",
@@ -109,34 +114,35 @@ def load() -> ctypes.CDLL:
     The compiler's report (``-Xptxas=-v``: registers and shared memory of each
     kernel) is kept beside the library as ``<library>.log``.
     """
-    nvcc = find_nvcc()
-    path = library_path(nvcc)
-    if not path.exists():
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tag = f"{path.stem}.{os.getpid()}"
-        objs = [path.with_name(f"{tag}.{src.stem}.o") for src in sources()]
-        procs = [
-            subprocess.Popen(compile_command(nvcc, src, obj), stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(sources(), objs)
-        ]
-        log = ""
-        failed = False
-        for src, proc in zip(sources(), procs):
-            out, _ = proc.communicate()
-            log += f"== {src.name}\n{out}"
-            failed |= proc.returncode != 0
-        tmp = path.with_name(f"{tag}.tmp")
-        if not failed:
-            link = subprocess.run(link_command(nvcc, objs, tmp), stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-            log += f"== link\n{link.stdout}"
-            failed = link.returncode != 0
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-        if failed:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed building {path.name}:\n{log}")
-        path.with_name(path.name + ".log").write_text(log)
-        os.replace(tmp, path)
-    return ctypes.CDLL(str(path))
+    with spans.setup_span("setup.kernel_build"):
+        nvcc = find_nvcc()
+        path = library_path(nvcc)
+        if not path.exists():
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tag = f"{path.stem}.{os.getpid()}"
+            objs = [path.with_name(f"{tag}.{src.stem}.o") for src in sources()]
+            procs = [
+                subprocess.Popen(compile_command(nvcc, src, obj), stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources(), objs)
+            ]
+            log = ""
+            failed = False
+            for src, proc in zip(sources(), procs):
+                out, _ = proc.communicate()
+                log += f"== {src.name}\n{out}"
+                failed |= proc.returncode != 0
+            tmp = path.with_name(f"{tag}.tmp")
+            if not failed:
+                link = subprocess.run(link_command(nvcc, objs, tmp), stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                log += f"== link\n{link.stdout}"
+                failed = link.returncode != 0
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            if failed:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed building {path.name}:\n{log}")
+            path.with_name(path.name + ".log").write_text(log)
+            os.replace(tmp, path)
+        return ctypes.CDLL(str(path))

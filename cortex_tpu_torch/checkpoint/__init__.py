@@ -12,6 +12,10 @@ package's names and file layout:
   periodic snapshots of long streaming runs.
 """
 
-from .pytree_io import CheckpointManager, restore, save
+from ..utils import spans as _spans
+
+# The subpackage's imports: a set-up span of the process.
+with _spans.setup_span("setup.import"):
+    from .pytree_io import CheckpointManager, restore, save
 
 __all__ = ["save", "restore", "CheckpointManager"]

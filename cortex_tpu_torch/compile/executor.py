@@ -27,6 +27,7 @@ import torch
 from ..core import variants as V
 from ..core.engine import InferenceEngine
 from ..core.signal import Signal
+from ..utils import spans
 from ..utils.tree import concatenate, stack, tree_leaves, tree_map, tree_structure
 from .lowering import LoweredPlan, ScanSegment, lower_schedule
 from .schedule import PhaseGroup, StaticSchedule, extract_schedule
@@ -135,9 +136,9 @@ def smart_stack(values: Sequence[Any]) -> Any:
                     return parts[0]
                 return tree_map(lambda *ls: concatenate(ls, 0), *parts)
             if one_pack:
-                idx_arr = torch.tensor(
+                idx_arr = spans.h2d(torch.tensor(
                     [v.index for v in values], device=_device(first.pack)
-                )
+                ))
                 return tree_map(lambda a: a[idx_arr], first.pack)
             # Cross-pack scatter: one concatenate + one gather.
             packs: List[Any] = []
@@ -151,9 +152,9 @@ def smart_stack(values: Sequence[Any]) -> Any:
             structs = {tree_structure(p) for p in packs}
             if len(structs) == 1:
                 big = tree_map(lambda *ls: concatenate(ls, 0), *packs)
-                idx_arr = torch.tensor(
+                idx_arr = spans.h2d(torch.tensor(
                     [offset[id(v.pack)] + v.index for v in values], device=_device(big)
-                )
+                ))
                 return tree_map(lambda a: a[idx_arr], big)
         except (ValueError, TypeError):
             pass  # heterogeneous row structures — slow path below
@@ -351,28 +352,32 @@ class CompiledInference:
         for phase in phases:
             for group in phase:
                 n_deps = group.key[2]
-                dep_values = []
-                for j in range(n_deps):
-                    try:
-                        dep_values.append(
-                            smart_stack([values[id(st.deps[j])] for st in group.steps])
-                        )
-                    except (ValueError, TypeError) as e:
-                        raise TypeError(
-                            f"Cannot batch dependency {j} of rule group "
-                            f"{group.key}: the {len(group.steps)} steps carry "
-                            "incompatible value structures/shapes. Split the "
-                            "group with a refine_key (see "
-                            "cortex_tpu_torch.compile.dep_role_key)."
-                        ) from e
-                out = self.processor.dispatch(self.engine, group, dep_values)
-                n = len(group.steps)
-                _check_batch(out, n, f"group {group.key}", " — one output per step in the group")
-                # Lazy unstack: each signal's entry is a PackRef row into the
-                # group output; downstream smart_stacks re-fuse them into one
-                # gather (or reuse the pack outright).
-                for i, st in enumerate(group.steps):
-                    values[id(st.signal)] = PackRef(out, i, n)
+                with spans.span("compiled.gather"):
+                    dep_values = []
+                    for j in range(n_deps):
+                        try:
+                            dep_values.append(
+                                smart_stack([values[id(st.deps[j])] for st in group.steps])
+                            )
+                        except (ValueError, TypeError) as e:
+                            raise TypeError(
+                                f"Cannot batch dependency {j} of rule group "
+                                f"{group.key}: the {len(group.steps)} steps carry "
+                                "incompatible value structures/shapes. Split the "
+                                "group with a refine_key (see "
+                                "cortex_tpu_torch.compile.dep_role_key)."
+                            ) from e
+                with spans.span(f"rules.{group.key[0]}"):
+                    out = self.processor.dispatch(self.engine, group, dep_values)
+                with spans.span("compiled.writeback"):
+                    n = len(group.steps)
+                    _check_batch(out, n, f"group {group.key}",
+                                 " — one output per step in the group")
+                    # Lazy unstack: each signal's entry is a PackRef row into
+                    # the group output; downstream smart_stacks re-fuse them
+                    # into one gather (or reuse the pack outright).
+                    for i, st in enumerate(group.steps):
+                        values[id(st.signal)] = PackRef(out, i, n)
 
     def _execute_plan(self, values: Dict[int, Any], plan: Optional[LoweredPlan] = None) -> None:
         """One dataflow sweep via the lowered plan (scan segments + batched
@@ -385,7 +390,8 @@ class CompiledInference:
             if kind == "phase":
                 self._execute_phases(values, [seg])
             else:
-                self._execute_scan(values, seg)
+                with spans.span("compiled.scan"):
+                    self._execute_scan(values, seg)
 
     def _execute_scan(self, values: Dict[int, Any], seg: ScanSegment) -> None:
         """Run one rerolled recurrence as a loop over its ``seg.length``
@@ -394,78 +400,86 @@ class CompiledInference:
         Carry = the lookback windows of carried sequences; xs = stacked
         per-iteration external inputs; ys = outputs consumed outside the
         loop, collected per iteration and stacked once at the end."""
-        xs_slot: Dict[Tuple[int, int, int], int] = {}
-        xs_list: List[Any] = []
-        for ci, cls in enumerate(seg.classes):
-            for qi, specs in enumerate(cls.dep_specs):
-                for d, spec in enumerate(specs):
-                    if spec[0] == "xs":
-                        xs_slot[(ci, qi, d)] = len(xs_list)
-                        xs_list.append(smart_stack([values[id(s)] for s in spec[1]]))
-        carry_slots = sorted(seg.carry_window)
-        slot_index = {s: i for i, s in enumerate(carry_slots)}
-        carry = tuple(
-            tuple(materialize(values[id(sig)]) for sig in seg.carry_init[s])
-            for s in carry_slots
-        )
-        emit = [
-            (ci, qi)
-            for ci, cls in enumerate(seg.classes)
-            for qi, e in enumerate(cls.emit_ys)
-            if e
-        ]
-        consts = {
-            id(spec[1]): materialize(values[id(spec[1])])
-            for cls in seg.classes
-            for specs in cls.dep_specs
-            for spec in specs
-            if spec[0] == "const"
-        }
-        groups = [PhaseGroup(cls.key, [seq[0] for seq in cls.seqs]) for cls in seg.classes]
+        with spans.span("compiled.gather"):
+            xs_slot: Dict[Tuple[int, int, int], int] = {}
+            xs_list: List[Any] = []
+            for ci, cls in enumerate(seg.classes):
+                for qi, specs in enumerate(cls.dep_specs):
+                    for d, spec in enumerate(specs):
+                        if spec[0] == "xs":
+                            xs_slot[(ci, qi, d)] = len(xs_list)
+                            xs_list.append(smart_stack([values[id(s)] for s in spec[1]]))
+            carry_slots = sorted(seg.carry_window)
+            slot_index = {s: i for i, s in enumerate(carry_slots)}
+            carry = tuple(
+                tuple(materialize(values[id(sig)]) for sig in seg.carry_init[s])
+                for s in carry_slots
+            )
+            emit = [
+                (ci, qi)
+                for ci, cls in enumerate(seg.classes)
+                for qi, e in enumerate(cls.emit_ys)
+                if e
+            ]
+            consts = {
+                id(spec[1]): materialize(values[id(spec[1])])
+                for cls in seg.classes
+                for specs in cls.dep_specs
+                for spec in specs
+                if spec[0] == "const"
+            }
+            groups = [PhaseGroup(cls.key, [seq[0] for seq in cls.seqs]) for cls in seg.classes]
+            rules = [f"rules.{cls.key[0]}" for cls in seg.classes]
         ys: List[List[Any]] = [[] for _ in emit]
 
         for t in range(seg.length):
-            xs_row = [tree_map(lambda a: a[t], x) for x in xs_list]
+            with spans.span("compiled.gather"):
+                xs_row = [tree_map(lambda a: a[t], x) for x in xs_list]
             outs: Dict[Tuple[int, int], Any] = {}
             for ci, cls in enumerate(seg.classes):
                 n = len(cls.seqs)
-                dep_values = []
-                for d in range(len(cls.dep_specs[0])):
-                    vals = []
-                    for qi in range(n):
-                        spec = cls.dep_specs[qi][d]
-                        if spec[0] == "const":
-                            vals.append(consts[id(spec[1])])
-                        elif spec[0] == "xs":
-                            vals.append(xs_row[xs_slot[(ci, qi, d)]])
-                        elif spec[0] == "intra":
-                            vals.append(outs[(spec[1], spec[2])])
-                        else:  # carry
-                            window = carry[slot_index[(spec[1], spec[2])]]
-                            vals.append(window[spec[3] - 1])
-                    try:
-                        dep_values.append(tree_stack(vals))
-                    except (ValueError, TypeError) as e:
-                        raise TypeError(
-                            f"Cannot batch dependency {d} of scan class "
-                            f"{cls.key}: its {n} sequences carry incompatible "
-                            "value structures/shapes. Construct "
-                            "CompiledInference with lower=False or split the "
-                            "group with a refine_key."
-                        ) from e
-                out = self.processor.dispatch(self.engine, groups[ci], dep_values)
-                _check_batch(out, n, f"scan class {cls.key}")
-                for qi, val in enumerate(tree_unstack(out, n)):
-                    outs[(ci, qi)] = val
-            carry = tuple((outs[s],) + carry[slot_index[s]][:-1] for s in carry_slots)
-            for k, s in enumerate(emit):
-                ys[k].append(outs[s])
+                with spans.span("compiled.gather"):
+                    dep_values = []
+                    for d in range(len(cls.dep_specs[0])):
+                        vals = []
+                        for qi in range(n):
+                            spec = cls.dep_specs[qi][d]
+                            if spec[0] == "const":
+                                vals.append(consts[id(spec[1])])
+                            elif spec[0] == "xs":
+                                vals.append(xs_row[xs_slot[(ci, qi, d)]])
+                            elif spec[0] == "intra":
+                                vals.append(outs[(spec[1], spec[2])])
+                            else:  # carry
+                                window = carry[slot_index[(spec[1], spec[2])]]
+                                vals.append(window[spec[3] - 1])
+                        try:
+                            dep_values.append(tree_stack(vals))
+                        except (ValueError, TypeError) as e:
+                            raise TypeError(
+                                f"Cannot batch dependency {d} of scan class "
+                                f"{cls.key}: its {n} sequences carry incompatible "
+                                "value structures/shapes. Construct "
+                                "CompiledInference with lower=False or split the "
+                                "group with a refine_key."
+                            ) from e
+                with spans.span(rules[ci]):
+                    out = self.processor.dispatch(self.engine, groups[ci], dep_values)
+                with spans.span("compiled.writeback"):
+                    _check_batch(out, n, f"scan class {cls.key}")
+                    for qi, val in enumerate(tree_unstack(out, n)):
+                        outs[(ci, qi)] = val
+            with spans.span("compiled.writeback"):
+                carry = tuple((outs[s],) + carry[slot_index[s]][:-1] for s in carry_slots)
+                for k, s in enumerate(emit):
+                    ys[k].append(outs[s])
 
-        for (ci, qi), items in zip(emit, ys):
-            arr = tree_stack(items)
-            seq = seg.classes[ci].seqs[qi]
-            for i, st in enumerate(seq):
-                values[id(st.signal)] = PackRef(arr, i, len(seq))
+        with spans.span("compiled.writeback"):
+            for (ci, qi), items in zip(emit, ys):
+                arr = tree_stack(items)
+                seq = seg.classes[ci].seqs[qi]
+                for i, st in enumerate(seq):
+                    values[id(st.signal)] = PackRef(arr, i, len(seq))
 
     def steady_state_phases(self):
         """The steady-state sweep: ALL steps collapsed into one phase with
@@ -508,29 +522,32 @@ class CompiledInference:
         new_state)`` where ``marginals`` maps variable_id → value and
         ``new_state`` carries the updated iteration state (for VMP fixed-point
         loops)."""
-        return self.iterate(inputs, 1, state, source_pack=source_pack, packed=packed)
+        with spans.span("compiled.run"):
+            return self.iterate(inputs, 1, state, source_pack=source_pack, packed=packed)
 
     def __call__(self, inputs: Mapping[Any, Any]) -> Dict[int, Any]:
         marginals, _ = self.run(inputs)
         return marginals
 
     def _start(self, inputs, state, source_pack) -> Dict[int, Any]:
-        values: Dict[int, Any] = self._resolve_inputs(inputs, source_pack)
-        if state is None:
-            state = self.initial_state()
-        for sig, val in zip(self.schedule.initials, state):
-            values[id(sig)] = val
-        return values
+        with spans.span("boundary.inputs"):
+            values: Dict[int, Any] = self._resolve_inputs(inputs, source_pack)
+            if state is None:
+                state = self.initial_state()
+            for sig, val in zip(self.schedule.initials, state):
+                values[id(sig)] = val
+            return values
 
     def _results(self, values: Dict[int, Any], packed: bool):
-        out = (lambda v: v) if packed else materialize
-        marginals = {
-            vid: out(values[id(sig)])
-            for vid, sig in self.schedule.targets.items()
-            if id(sig) in values
-        }
-        new_state = [out(values[id(s)]) for s in self.schedule.initials]
-        return marginals, new_state
+        with spans.span("compiled.results"):
+            out = (lambda v: v) if packed else materialize
+            marginals = {
+                vid: out(values[id(sig)])
+                for vid, sig in self.schedule.targets.items()
+                if id(sig) in values
+            }
+            new_state = [out(values[id(s)]) for s in self.schedule.initials]
+            return marginals, new_state
 
     def iterate(
         self,
@@ -559,13 +576,14 @@ class CompiledInference:
         """
         if n_iterations < 1:
             raise ValueError(f"n_iterations must be >= 1, got {n_iterations}")
-        values = self._start(inputs, state, source_pack)
-        for k in range(n_iterations):
-            if steady_state and k > 0:
-                self._execute_phases(values, self.steady_state_phases())
-            else:
-                self._execute_plan(values)
-        return self._results(values, packed)
+        with spans.span("compiled.iterate"):
+            values = self._start(inputs, state, source_pack)
+            for k in range(n_iterations):
+                if steady_state and k > 0:
+                    self._execute_phases(values, self.steady_state_phases())
+                else:
+                    self._execute_plan(values)
+            return self._results(values, packed)
 
     def fixed_point(
         self,
@@ -593,14 +611,15 @@ class CompiledInference:
             raise ValueError(f"n_iterations must be >= 1, got {n_iterations}")
         if mode not in ("steady_state", "dataflow"):
             raise ValueError(f"Unknown fixed_point mode: {mode!r}")
-        values = self._start(inputs, state, source_pack)
-        self._execute_plan(values, self.full_plan)
-        for _ in range(n_iterations - 1):
-            if mode == "dataflow":
-                self._execute_plan(values, self.full_plan)
-            else:
-                self._execute_phases(values, self.steady_state_phases())
-        return self._results(values, packed)
+        with spans.span("compiled.fixed_point"):
+            values = self._start(inputs, state, source_pack)
+            self._execute_plan(values, self.full_plan)
+            for _ in range(n_iterations - 1):
+                if mode == "dataflow":
+                    self._execute_plan(values, self.full_plan)
+                else:
+                    self._execute_phases(values, self.steady_state_phases())
+            return self._results(values, packed)
 
     def summary(self) -> str:
         out = self.schedule.summary()

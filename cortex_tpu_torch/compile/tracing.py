@@ -8,9 +8,23 @@ tools:
   recording one :class:`TracedPhaseGroup` per batched rule call with wall
   time (the device synchronized after each call) and, optionally, value
   snapshots — the compiled analogue of the dynamic engine's
-  Request→Round→Execution tracer,
+  Request→Round→Execution tracer.  The synchronizations make its times
+  those of a sweep that waits for the card after every group: a debug
+  mode, not a measurement of speed,
 - :func:`profile_run` — wraps a call in a ``torch.profiler`` trace of the
   host and the card, written as a Chrome trace under ``log_dir``.
+
+Unsynchronized times of the executor are its spans
+(:mod:`cortex_tpu_torch.utils.spans`), on in any profiler session:
+``compiled.run`` around a sweep, ``boundary.inputs`` around its inputs,
+``compiled.gather`` and ``compiled.writeback`` around each group's and
+each scan step's stacks and write-backs, ``rules.<kind>`` around each
+batched rule call.  So :func:`profile_run`'s Chrome trace holds the
+program's spans on the clock of the card's kernels, and after the block
+``spans.calls()`` holds one record a call (each layer's self time and the
+counters' increments, such as ``copy.h2d.calls``, ``copy.h2d.bytes`` and
+the hand kernels' ``launch.*``) and ``spans.counts()`` the counters'
+totals.
 """
 
 from __future__ import annotations
@@ -66,7 +80,10 @@ def trace_run(
     snapshot_values: bool = False,
 ) -> TracedSweep:
     """Execute one sweep phase by phase with per-group timing (debug
-    interpreter mode — do not use for performance measurement)."""
+    interpreter mode — do not use for performance measurement): the card is
+    synchronized after every group.  For unsynchronized times, run the
+    sweep inside :func:`profile_run` (or any profiler session) and read the
+    executor's spans."""
     from .executor import tree_stack, tree_unstack
 
     values = compiled._resolve_inputs(inputs)

@@ -23,6 +23,7 @@ from ..dists import Dirichlet
 from ..ops.chains import _full_float32_matmul
 from ..ops.hmm import HMMPosterior, hmm_forward_backward, hmm_viterbi
 from ..ops.kernels_hmm import FLOOR, hmm_forward_backward_counts_fused
+from ..utils import spans
 from ..utils.tree import as_float32_tensor, as_tensors, input_device
 
 __all__ = ["HMM", "HMMVMPState", "HMMVMPResult"]
@@ -149,64 +150,69 @@ class HMM(nn.Module):
         one shared transition matrix).  The final smoothing pass is always
         the log-space scan.
         """
-        _check_method(method)
-        obs, *init = self._inputs(obs, *(init_state or ()))
-        init_state = HMMVMPState(*init) if init else None
-        if method == "fused" and not (pooled and obs.dim() == 2):
-            raise ValueError("method='fused' requires pooled=True and obs of shape (R, T)")
-        if n_iterations < 1:
-            raise ValueError(f"n_iterations must be at least 1, got {n_iterations}")
-        K, M = self.K, n_symbols
-        dtype, device = self.log_pi.dtype, obs.device
-        batch = () if pooled else tuple(obs.shape[:-1])
-        # One-hot by comparison: an obs of -1 (or out of range) gives a zero row.
-        onehot = (obs[..., None] == torch.arange(M, device=device)).to(dtype)  # (..., T, M)
+        with spans.span("model.hmm.fit_vmp"):
+            _check_method(method)
+            with spans.span("boundary.inputs"):
+                obs, *init = self._inputs(obs, *(init_state or ()))
+                init_state = HMMVMPState(*init) if init else None
+            if method == "fused" and not (pooled and obs.dim() == 2):
+                raise ValueError("method='fused' requires pooled=True and obs of shape (R, T)")
+            if n_iterations < 1:
+                raise ValueError(f"n_iterations must be at least 1, got {n_iterations}")
+            K, M = self.K, n_symbols
+            dtype, device = self.log_pi.dtype, obs.device
+            batch = () if pooled else tuple(obs.shape[:-1])
+            # One-hot by comparison: an obs of -1 (or out of range) gives a zero row.
+            onehot = (obs[..., None] == torch.arange(M, device=device)).to(dtype)  # (..., T, M)
 
-        if init_state is None:
-            # Symmetry breaking: tilt the transition prior towards
-            # self-persistence (deterministic, replica-independent).
-            eye = torch.eye(K, dtype=dtype, device=device)
-            tilt = (torch.arange(K, device=device) % M)[:, None] == torch.arange(M, device=device)
-            init_state = HMMVMPState(
-                (trans_prior + 0.5 * eye).expand(batch + (K, K)),
-                (emis_prior + 0.25 * tilt.to(dtype)).expand(batch + (K, M)),
-            )
-        trans_prior_arr = torch.full((K, K), trans_prior, dtype=dtype, device=device)
-        emis_prior_arr = torch.full((K, M), emis_prior, dtype=dtype, device=device)
-        reduce_dims = tuple(range(obs.dim() - 1)) if pooled and obs.dim() > 1 else ()
-
-        def e_step(log_lik, log_A):
-            if method == "fused":
-                out = hmm_forward_backward_counts_fused(
-                    torch.exp(log_lik), torch.exp(log_A), torch.exp(self.log_pi)
+            if init_state is None:
+                # Symmetry breaking: tilt the transition prior towards
+                # self-persistence (deterministic, replica-independent).
+                eye = torch.eye(K, dtype=dtype, device=device)
+                tilt = ((torch.arange(K, device=device) % M)[:, None]
+                        == torch.arange(M, device=device))
+                init_state = HMMVMPState(
+                    (trans_prior + 0.5 * eye).expand(batch + (K, K)),
+                    (emis_prior + 0.25 * tilt.to(dtype)).expand(batch + (K, M)),
                 )
-                return out.gamma, out.xi_sum, out.log_evidence
-            post = hmm_forward_backward(log_lik, log_A, self.log_pi)
-            return torch.exp(post.log_gamma), torch.exp(post.log_xi_sum), post.log_evidence
+            trans_prior_arr = torch.full((K, K), trans_prior, dtype=dtype, device=device)
+            emis_prior_arr = torch.full((K, M), emis_prior, dtype=dtype, device=device)
+            reduce_dims = tuple(range(obs.dim() - 1)) if pooled and obs.dim() > 1 else ()
 
-        state = init_state
-        with _full_float32_matmul():  # keeps the one-hot einsums exact under a TF32 setting
-            for _ in range(n_iterations):
-                # E[log θ] under the Dirichlet posteriors (digamma means).
+            def e_step(log_lik, log_A):
+                if method == "fused":
+                    out = hmm_forward_backward_counts_fused(
+                        torch.exp(log_lik), torch.exp(log_A), torch.exp(self.log_pi)
+                    )
+                    return out.gamma, out.xi_sum, out.log_evidence
+                post = hmm_forward_backward(log_lik, log_A, self.log_pi)
+                return torch.exp(post.log_gamma), torch.exp(post.log_xi_sum), post.log_evidence
+
+            state = init_state
+            with _full_float32_matmul():  # keeps the one-hot einsums exact under a TF32 setting
+                for _ in range(n_iterations):
+                    with spans.span("model.hmm.vmp_iteration"):
+                        # E[log θ] under the Dirichlet posteriors (digamma means).
+                        log_A = Dirichlet(state.trans_alpha).mean_log()
+                        log_B = Dirichlet(state.emis_alpha).mean_log()
+                        log_lik = torch.einsum("...tm,...km->...tk", onehot, log_B)
+                        gamma, trans_counts, log_evidence = e_step(log_lik, log_A)
+                        emis_counts = torch.einsum("...tk,...tm->...km", gamma, onehot)
+                        if reduce_dims:
+                            # Sum expected statistics across replicas (one shared model).
+                            trans_counts = trans_counts.sum(dim=reduce_dims)
+                            emis_counts = emis_counts.sum(dim=reduce_dims)
+                            log_evidence = log_evidence.sum(dim=reduce_dims)
+                        state = HMMVMPState(trans_prior_arr + trans_counts,
+                                            emis_prior_arr + emis_counts)
+                        elbo = (
+                            log_evidence
+                            - torch.sum(_dirichlet_kl(state.trans_alpha, trans_prior_arr), dim=-1)
+                            - torch.sum(_dirichlet_kl(state.emis_alpha, emis_prior_arr), dim=-1)
+                        )
+                # Final smoothing pass under the final posterior.
                 log_A = Dirichlet(state.trans_alpha).mean_log()
                 log_B = Dirichlet(state.emis_alpha).mean_log()
                 log_lik = torch.einsum("...tm,...km->...tk", onehot, log_B)
-                gamma, trans_counts, log_evidence = e_step(log_lik, log_A)
-                emis_counts = torch.einsum("...tk,...tm->...km", gamma, onehot)
-                if reduce_dims:
-                    # Sum expected statistics across replicas (one shared model).
-                    trans_counts = trans_counts.sum(dim=reduce_dims)
-                    emis_counts = emis_counts.sum(dim=reduce_dims)
-                    log_evidence = log_evidence.sum(dim=reduce_dims)
-                state = HMMVMPState(trans_prior_arr + trans_counts, emis_prior_arr + emis_counts)
-                elbo = (
-                    log_evidence
-                    - torch.sum(_dirichlet_kl(state.trans_alpha, trans_prior_arr), dim=-1)
-                    - torch.sum(_dirichlet_kl(state.emis_alpha, emis_prior_arr), dim=-1)
-                )
-            # Final smoothing pass under the final posterior.
-            log_A = Dirichlet(state.trans_alpha).mean_log()
-            log_B = Dirichlet(state.emis_alpha).mean_log()
-            log_lik = torch.einsum("...tm,...km->...tk", onehot, log_B)
-            post = hmm_forward_backward(log_lik, log_A, self.log_pi)
-        return HMMVMPResult(state, post, elbo)
+                post = hmm_forward_backward(log_lik, log_A, self.log_pi)
+            return HMMVMPResult(state, post, elbo)

@@ -32,6 +32,7 @@ from ..ops.chains import (
     scalar_kalman_update,
 )
 from ..ops.kernels import lgssm_smooth_fused
+from ..utils import spans
 
 __all__ = ["LGSSM"]
 
@@ -82,9 +83,10 @@ class LGSSM(nn.Module):
         ``"fused"`` launches K1 on a CUDA ``y`` of shape ``(R, T)`` (its
         plain version on a CPU one), with no prior.
         """
-        if method not in _SMOOTHERS:
-            raise ValueError(f"Unknown method: {method!r}")
-        return _SMOOTHERS[method](y, self.A, self.Q, self.H, self.R, prior)
+        with spans.span("model.lgssm.smooth"):
+            if method not in _SMOOTHERS:
+                raise ValueError(f"Unknown method: {method!r}")
+            return _SMOOTHERS[method](y, self.A, self.Q, self.H, self.R, prior)
 
     def filter(
         self,

@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import spans
 from ..utils.tree import as_tensors
 
 __all__ = ["HMMPosterior", "hmm_forward_backward", "hmm_viterbi"]
@@ -38,35 +39,36 @@ def hmm_forward_backward(
     ``T``, marginals ``gamma ∝ alpha·beta``, and the pairwise expected counts
     summed over time (the sufficient statistics of Dirichlet VMP).
     """
-    log_lik, log_A, log_pi = as_tensors(log_lik, log_A, log_pi)
-    llT = log_lik.movedim(-2, 0)  # (T, ..., K)
-    T = llT.shape[0]
+    with spans.span("ops.hmm_forward_backward"):
+        log_lik, log_A, log_pi = as_tensors(log_lik, log_A, log_pi)
+        llT = log_lik.movedim(-2, 0)  # (T, ..., K)
+        T = llT.shape[0]
 
-    # Forward: alpha_t(k) = loglik_t(k) + lse_j(alpha_{t-1}(j) + log_A[j,k])
-    alphas = [log_pi + llT[0]]
-    for t in range(1, T):
-        alphas.append(llT[t] + torch.logsumexp(alphas[-1][..., :, None] + log_A, dim=-2))
-    alphas = torch.stack(alphas)  # (T, ..., K)
+        # Forward: alpha_t(k) = loglik_t(k) + lse_j(alpha_{t-1}(j) + log_A[j,k])
+        alphas = [log_pi + llT[0]]
+        for t in range(1, T):
+            alphas.append(llT[t] + torch.logsumexp(alphas[-1][..., :, None] + log_A, dim=-2))
+        alphas = torch.stack(alphas)  # (T, ..., K)
 
-    # Backward: beta_{T-1} = 0;
-    # beta_t(j) = lse_k(log_A[j,k] + loglik_{t+1}(k) + beta_{t+1}(k))
-    betas = [torch.zeros_like(alphas[-1])]
-    for t in range(T - 2, -1, -1):
-        betas.append(torch.logsumexp(log_A + (llT[t + 1] + betas[-1])[..., None, :], dim=-1))
-    betas = torch.stack(betas[::-1])
+        # Backward: beta_{T-1} = 0;
+        # beta_t(j) = lse_k(log_A[j,k] + loglik_{t+1}(k) + beta_{t+1}(k))
+        betas = [torch.zeros_like(alphas[-1])]
+        for t in range(T - 2, -1, -1):
+            betas.append(torch.logsumexp(log_A + (llT[t + 1] + betas[-1])[..., None, :], dim=-1))
+        betas = torch.stack(betas[::-1])
 
-    log_Z = torch.logsumexp(alphas[-1], dim=-1)
-    log_gamma = alphas + betas - log_Z[None, ..., None]
+        log_Z = torch.logsumexp(alphas[-1], dim=-1)
+        log_gamma = alphas + betas - log_Z[None, ..., None]
 
-    # Pairwise: xi_t(j,k) ∝ alpha_t(j) + log_A[j,k] + loglik_{t+1}(k) + beta_{t+1}(k)
-    log_xi = (
-        alphas[:-1][..., :, None]
-        + log_A
-        + (llT[1:] + betas[1:])[..., None, :]
-        - log_Z[None, ..., None, None]
-    )  # (T-1, ..., K, K)
-    log_xi_sum = torch.logsumexp(log_xi, dim=0)
-    return HMMPosterior(log_gamma.movedim(0, -2), log_xi_sum, log_Z)
+        # Pairwise: xi_t(j,k) ∝ alpha_t(j) + log_A[j,k] + loglik_{t+1}(k) + beta_{t+1}(k)
+        log_xi = (
+            alphas[:-1][..., :, None]
+            + log_A
+            + (llT[1:] + betas[1:])[..., None, :]
+            - log_Z[None, ..., None, None]
+        )  # (T-1, ..., K, K)
+        log_xi_sum = torch.logsumexp(log_xi, dim=0)
+        return HMMPosterior(log_gamma.movedim(0, -2), log_xi_sum, log_Z)
 
 
 def hmm_viterbi(

@@ -24,9 +24,12 @@ captures its launch, and a saved program loads wherever this package's
 ``LAUNCHES`` counts each kernel's launches (this module's and those of
 :mod:`~cortex_tpu_torch.ops.kernels_hmm` and
 :mod:`~cortex_tpu_torch.ops.kernels_hgf`), so that a run can show that its
-path went through the kernels.  A CUDA graph counts its kernels once, when it
-is captured: a replay runs them without Python.  :func:`_library` builds and
-binds them all.
+path went through the kernels; it is the ``launch`` group of the counters of
+:mod:`~cortex_tpu_torch.utils.spans`.  A CUDA graph counts its kernels once,
+when it is captured: a replay runs them without Python.  :func:`_library`
+builds and binds them all.  Each wrapper is an ``ops.`` span, its checks of
+the inputs a ``boundary.`` span and each CUDA implementation a ``launch.``
+span (:mod:`~cortex_tpu_torch.utils.spans`).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import functools
 import torch
 
 from .. import _build
+from ..utils import spans
 from ..utils.tree import as_tensors
 from .chains import ChainMarginals
 
@@ -49,7 +53,7 @@ __all__ = [
     "sweep_coefficients",
 ]
 
-LAUNCHES = {"lgssm_smooth": 0, "hmm_fb": 0, "hmm_fb_counts": 0, "hgf_filter": 0}
+LAUNCHES = spans.counter_group("launch", ("lgssm_smooth", "hmm_fb", "hmm_fb_counts", "hgf_filter"))
 
 # The kernels' operators, in one namespace named after the package
 # (``cortex_tpu_torch``; another checkout imported beside it under another
@@ -220,7 +224,7 @@ def sweep_coefficients(
         for t in range(b - 1, a - 1, -1):
             prod *= gb[t]
             pb[t] = prod
-    return torch.tensor([gf, gb, var, pf, pb], dtype=torch.float32, device=device)
+    return spans.h2d(torch.tensor([gf, gb, var, pf, pb], dtype=torch.float32, device=device))
 
 
 @functools.cache
@@ -252,33 +256,34 @@ def _lgssm_smooth_cpu(y, A, Q, H, R):
 
 def _lgssm_smooth_cuda(y, A, Q, H, R):
     """Launch ``csrc/lgssm_smooth.cu`` on ``y`` (checked by the caller)."""
-    if not y.is_contiguous():
-        raise ValueError("y must be contiguous")
-    lib = _library()
-    n, T = y.shape
-    seg = segment_length(T)
-    coef = sweep_coefficients(A, Q, H, R, T, y.device, seg)
-    mean = torch.empty_like(y)
-    var = torch.empty_like(y)
-    tile = smem_tile(T)
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        if tile:
-            err = lib.lgssm_smooth_smem_f32(
-                y.data_ptr(), mean.data_ptr(), var.data_ptr(), coef.data_ptr(),
-                n, T, tile, row_pitch(T), seg, H / R, stream,
-            )
-        else:
-            scratch = torch.empty((T, n), dtype=y.dtype, device=y.device)
-            err = lib.lgssm_smooth_global_f32(
-                y.data_ptr(), mean.data_ptr(), var.data_ptr(), coef.data_ptr(),
-                scratch.data_ptr(), n, T, H / R, stream,
-            )
-    if err != 0:
-        reason = lib.lgssm_cuda_error_string(err).decode()
-        raise RuntimeError(f"lgssm_smooth kernel launch failed: {reason} ({err})")
-    LAUNCHES["lgssm_smooth"] += 1
-    return mean, var
+    with spans.span("launch.lgssm_smooth"):
+        if not y.is_contiguous():
+            raise ValueError("y must be contiguous")
+        lib = _library()
+        n, T = y.shape
+        seg = segment_length(T)
+        coef = sweep_coefficients(A, Q, H, R, T, y.device, seg)
+        mean = torch.empty_like(y)
+        var = torch.empty_like(y)
+        tile = smem_tile(T)
+        with torch.cuda.device(y.device):
+            stream = torch.cuda.current_stream(y.device).cuda_stream
+            if tile:
+                err = lib.lgssm_smooth_smem_f32(
+                    y.data_ptr(), mean.data_ptr(), var.data_ptr(), coef.data_ptr(),
+                    n, T, tile, row_pitch(T), seg, H / R, stream,
+                )
+            else:
+                scratch = torch.empty((T, n), dtype=y.dtype, device=y.device)
+                err = lib.lgssm_smooth_global_f32(
+                    y.data_ptr(), mean.data_ptr(), var.data_ptr(), coef.data_ptr(),
+                    scratch.data_ptr(), n, T, H / R, stream,
+                )
+        if err != 0:
+            reason = lib.lgssm_cuda_error_string(err).decode()
+            raise RuntimeError(f"lgssm_smooth kernel launch failed: {reason} ({err})")
+        LAUNCHES["lgssm_smooth"] += 1
+        return mean, var
 
 
 OPS.impl("lgssm_smooth", _lgssm_smooth_cpu, "CPU")
@@ -310,9 +315,11 @@ def lgssm_smooth_fused(
     sizes its own tile, and the plain version takes interpret mode's place.
     A ``y`` that is not a tensor becomes float32 on the card.
     """
-    y, = as_tensors(y)
-    _check(y, A)
-    if y.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"lgssm_smooth_fused runs on cpu or cuda, not {y.device}")
-    mean, var = _LGSSM_SMOOTH(y, float(A), float(Q), float(H), float(R))
-    return ChainMarginals(mean, var)
+    with spans.span("ops.lgssm_smooth"):
+        with spans.span("boundary.inputs"):
+            y, = as_tensors(y)
+            _check(y, A)
+        if y.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"lgssm_smooth_fused runs on cpu or cuda, not {y.device}")
+        mean, var = _LGSSM_SMOOTH(y, float(A), float(Q), float(H), float(R))
+        return ChainMarginals(mean, var)

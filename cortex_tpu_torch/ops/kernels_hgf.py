@@ -27,6 +27,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils import spans
 from ..utils.tree import as_tensors
 from .kernels import COSTS, LAUNCHES, NAMESPACE, OPS, _library, op
 
@@ -131,32 +132,33 @@ def _hgf_filter_cpu(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_s
 def _hgf_filter_cuda(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,
                      tracks, bf16):
     """Launch ``csrc/hgf_filter.cu`` on ``u`` (checked by the caller)."""
-    if not u.is_contiguous():
-        raise ValueError("u must be contiguous")
-    R, T = u.shape
-    if R >= 2**31 or T >= 2**31:
-        raise ValueError(f"u of shape {tuple(u.shape)} is too large for the kernel")
-    lib = _library()
-    track_dtype = torch.bfloat16 if bf16 else torch.float32
-    finals = torch.empty((4, R), dtype=u.dtype, device=u.device)
-    outs = {ALL_TRACKS[i]: torch.empty((R, T), dtype=track_dtype, device=u.device)
-            for i in tracks}
-    # Output pointers in ALL_TRACKS order; 0 marks a track not written.
-    pointers = [outs[name].data_ptr() if name in outs else 0 for name in ALL_TRACKS]
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.hgf_filter_f32(
-            u.data_ptr(), finals.data_ptr(), *pointers, R, T, int(bf16),
-            # The Python-level constants of the step, rounded once to float32
-            # as torch rounds a number that multiplies a float32 tensor.
-            kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,
-            0.5 * kappa ** 2, 0.5 * kappa, stream,
-        )
-    if err != 0:
-        reason = lib.lgssm_cuda_error_string(err).decode()
-        raise RuntimeError(f"hgf_filter kernel launch failed: {reason} ({err})")
-    LAUNCHES["hgf_filter"] += 1
-    return finals, [outs[ALL_TRACKS[i]] for i in tracks]
+    with spans.span("launch.hgf_filter"):
+        if not u.is_contiguous():
+            raise ValueError("u must be contiguous")
+        R, T = u.shape
+        if R >= 2**31 or T >= 2**31:
+            raise ValueError(f"u of shape {tuple(u.shape)} is too large for the kernel")
+        lib = _library()
+        track_dtype = torch.bfloat16 if bf16 else torch.float32
+        finals = torch.empty((4, R), dtype=u.dtype, device=u.device)
+        outs = {ALL_TRACKS[i]: torch.empty((R, T), dtype=track_dtype, device=u.device)
+                for i in tracks}
+        # Output pointers in ALL_TRACKS order; 0 marks a track not written.
+        pointers = [outs[name].data_ptr() if name in outs else 0 for name in ALL_TRACKS]
+        with torch.cuda.device(u.device):
+            stream = torch.cuda.current_stream(u.device).cuda_stream
+            err = lib.hgf_filter_f32(
+                u.data_ptr(), finals.data_ptr(), *pointers, R, T, int(bf16),
+                # The Python-level constants of the step, rounded once to float32
+                # as torch rounds a number that multiplies a float32 tensor.
+                kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,
+                0.5 * kappa ** 2, 0.5 * kappa, stream,
+            )
+        if err != 0:
+            reason = lib.lgssm_cuda_error_string(err).decode()
+            raise RuntimeError(f"hgf_filter kernel launch failed: {reason} ({err})")
+        LAUNCHES["hgf_filter"] += 1
+        return finals, [outs[ALL_TRACKS[i]] for i in tracks]
 
 
 OPS.define(

@@ -31,6 +31,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils import spans
 from ..utils.tree import as_tensors
 from .chains import _full_float32_matmul
 from .kernels import (COSTS, LAUNCHES, NAMESPACE, OPS, SMEM_LIMIT_BYTES, _library, op,
@@ -176,37 +177,38 @@ def hmm_forward_backward_counts_fused_reference(
 def _launch(lik, A, pi, counts: bool):
     """Launch the kernel on operands checked by the caller, and count the
     launch."""
-    if not (lik.is_contiguous() and A.is_contiguous() and pi.is_contiguous()):
-        raise ValueError("lik, A and pi must be contiguous")
-    R, T, K = lik.shape
-    if R >= 2**31 or R * T * K >= 2**62:
-        raise ValueError(f"lik of shape {tuple(lik.shape)} is too large for the kernel")
-    group, alpha_smem = kernel_plan(T, K)
-    lib = _library()
-    A = A.to(lik.dtype)
-    At = A.t().contiguous() if group == 0 else A  # only the general path reads Aᵀ
-    pi = pi.to(lik.dtype)
-    gamma = torch.empty_like(lik)
-    logz = torch.empty(R, dtype=lik.dtype, device=lik.device)
-    xi = torch.empty((R, K, K), dtype=lik.dtype, device=lik.device) if counts else None
-    with torch.cuda.device(lik.device):
-        stream = torch.cuda.current_stream(lik.device).cuda_stream
-        common = (R, T, K, group, int(alpha_smem), stream)
-        if counts:
-            err = lib.hmm_forward_backward_counts_f32(
-                lik.data_ptr(), A.data_ptr(), At.data_ptr(), pi.data_ptr(),
-                gamma.data_ptr(), xi.data_ptr(), logz.data_ptr(), *common,
-            )
-        else:
-            err = lib.hmm_forward_backward_f32(
-                lik.data_ptr(), A.data_ptr(), At.data_ptr(), pi.data_ptr(),
-                gamma.data_ptr(), logz.data_ptr(), *common,
-            )
-    if err != 0:
-        reason = lib.lgssm_cuda_error_string(err).decode()
-        raise RuntimeError(f"hmm_forward_backward kernel launch failed: {reason} ({err})")
-    LAUNCHES["hmm_fb_counts" if counts else "hmm_fb"] += 1
-    return gamma, xi, logz
+    with spans.span("launch.hmm_fb_counts" if counts else "launch.hmm_fb"):
+        if not (lik.is_contiguous() and A.is_contiguous() and pi.is_contiguous()):
+            raise ValueError("lik, A and pi must be contiguous")
+        R, T, K = lik.shape
+        if R >= 2**31 or R * T * K >= 2**62:
+            raise ValueError(f"lik of shape {tuple(lik.shape)} is too large for the kernel")
+        group, alpha_smem = kernel_plan(T, K)
+        lib = _library()
+        A = A.to(lik.dtype)
+        At = A.t().contiguous() if group == 0 else A  # only the general path reads Aᵀ
+        pi = pi.to(lik.dtype)
+        gamma = torch.empty_like(lik)
+        logz = torch.empty(R, dtype=lik.dtype, device=lik.device)
+        xi = torch.empty((R, K, K), dtype=lik.dtype, device=lik.device) if counts else None
+        with torch.cuda.device(lik.device):
+            stream = torch.cuda.current_stream(lik.device).cuda_stream
+            common = (R, T, K, group, int(alpha_smem), stream)
+            if counts:
+                err = lib.hmm_forward_backward_counts_f32(
+                    lik.data_ptr(), A.data_ptr(), At.data_ptr(), pi.data_ptr(),
+                    gamma.data_ptr(), xi.data_ptr(), logz.data_ptr(), *common,
+                )
+            else:
+                err = lib.hmm_forward_backward_f32(
+                    lik.data_ptr(), A.data_ptr(), At.data_ptr(), pi.data_ptr(),
+                    gamma.data_ptr(), logz.data_ptr(), *common,
+                )
+        if err != 0:
+            reason = lib.lgssm_cuda_error_string(err).decode()
+            raise RuntimeError(f"hmm_forward_backward kernel launch failed: {reason} ({err})")
+        LAUNCHES["hmm_fb_counts" if counts else "hmm_fb"] += 1
+        return gamma, xi, logz
 
 
 OPS.define("hmm_fb(Tensor lik, Tensor A, Tensor pi) -> (Tensor, Tensor)")
@@ -258,10 +260,11 @@ def hmm_forward_backward_fused(
     likelihoods (linear space), ``A`` (K, K) row-stochastic, ``pi`` (K,), all
     on one device (arrays that are not tensors become float32 there, or on
     the card).  Returns ``(gamma, log_evidence)``."""
-    lik, A, pi = as_tensors(lik, A, pi)
-    _check(lik, A, pi)
-    _check_device(lik)
-    return HMMFusedPosterior(*_HMM_FB(lik, A, pi))
+    with spans.span("ops.hmm_fb"):
+        lik, A, pi = as_tensors(lik, A, pi)
+        _check(lik, A, pi)
+        _check_device(lik)
+        return HMMFusedPosterior(*_HMM_FB(lik, A, pi))
 
 
 def hmm_forward_backward_counts_fused(
@@ -271,7 +274,8 @@ def hmm_forward_backward_counts_fused(
     pairwise counts ``xi_sum`` (R, K, K) and the log-evidence.  On the card
     the counts are summed inside the backward pass.  Inputs as
     :func:`hmm_forward_backward_fused` takes them."""
-    lik, A, pi = as_tensors(lik, A, pi)
-    _check(lik, A, pi)
-    _check_device(lik)
-    return HMMFusedCounts(*_HMM_FB_COUNTS(lik, A, pi))
+    with spans.span("ops.hmm_fb_counts"):
+        lik, A, pi = as_tensors(lik, A, pi)
+        _check(lik, A, pi)
+        _check_device(lik)
+        return HMMFusedCounts(*_HMM_FB_COUNTS(lik, A, pi))

@@ -20,6 +20,8 @@ from typing import Any, Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import spans
+
 __all__ = [
     "keystr",
     "tree_flatten",
@@ -233,7 +235,7 @@ def as_float32_tensor(x: Any, device=None) -> torch.Tensor:
     # A copy, in row-major order: the tensor owns its memory, as a JAX array
     # does, whatever the strides or the writability of ``x``.
     t = torch.from_numpy(np.array(a, dtype=_NARROW.get(a.dtype, a.dtype), order="C"))
-    return t if device is None else t.to(device)
+    return t if device is None else spans.h2d(t.to(device))
 
 
 def to_tensor(x: Any, dtype=None, device=None) -> torch.Tensor:
