@@ -7,9 +7,18 @@ a rule key execute as ONE batched call: dependency values are stacked along a
 new leading *group* axis, the batched rule computes every signal in the group
 at once, and results stay packed in the value table.
 
-It runs eagerly: each phase is a few tensor operations on the device of the
-inputs, a lowered scan segment is a Python loop over its iterations, and the
-fixed-point loop is a plain loop.
+A sweep runs eagerly: each phase is a few tensor operations on the device of
+the inputs, a lowered scan segment is a Python loop over its iterations, and
+the fixed-point loop is a plain loop.  On the card, a sweep whose signature
+(:func:`sweep_signature`: the entry point, its static arguments, the inputs'
+structure, shapes, dtypes and device) repeats is captured into one
+``torch.cuda.CUDAGraph`` at its second call and replayed from then on: the
+call's tensors are copied into the graph's input buffers and the results are
+returned as copies, fresh tensors each call, as JAX returns fresh arrays.
+A replay reads the call's own inputs and state anew; what the engine or the
+processor hold is read as the capture found it, as ``jax.jit`` closes over
+it.  A sweep whose capture fails (a rule that reads a
+value back to the host) runs eagerly for good.
 
 Weak-dependency (VMP) semantics are preserved exactly: the value table starts
 from the previous iteration's state, so a weak edge whose producer has not yet
@@ -19,7 +28,9 @@ reference's weak-dependency pending criterion (``src/signal.jl:668-730``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+import threading
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +39,15 @@ from ..core import variants as V
 from ..core.engine import InferenceEngine
 from ..core.signal import Signal
 from ..utils import spans
-from ..utils.tree import concatenate, stack, tree_leaves, tree_map, tree_structure
+from ..utils.tree import (
+    concatenate,
+    stack,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_structure,
+    tree_unflatten,
+)
 from .lowering import LoweredPlan, ScanSegment, lower_schedule
 from .schedule import PhaseGroup, StaticSchedule, extract_schedule
 
@@ -41,7 +60,23 @@ __all__ = [
     "BatchedProcessor",
     "product_reduce",
     "CompiledInference",
+    "GRAPH_CAP",
+    "sweep_signature",
 ]
+
+# Captured sweeps one CompiledInference keeps; a capture beyond them evicts
+# the least recently used.
+GRAPH_CAP = 4
+
+# Calls on the card that ran from a captured graph, captures made, and calls
+# on the card that ran eagerly (a signature's first call, or one whose
+# capture failed).
+_GRAPH = spans.counter_group("compiled.graph", ("captures", "replays", "eager"))
+
+# ``uploads``: the index tensors of the sweep this thread captures, by rows
+# and device: its warm-up uploads them, its capture reads them, its graph
+# keeps them.
+_CAPTURING = threading.local()
 
 
 def tree_stack(values: Sequence[Any]) -> Any:
@@ -92,6 +127,20 @@ def materialize(value: Any) -> Any:
     return value
 
 
+def _indices(idx: List[int], device) -> torch.Tensor:
+    """The rows ``idx`` as an index tensor on ``device``: an upload, which
+    may not run while a stream captures.  So a capture's warm-up makes each
+    into the capture's cache (``_CAPTURING.uploads``), and the capture reads
+    it there."""
+    cache = getattr(_CAPTURING, "uploads", None)
+    if cache is None:
+        return spans.h2d(torch.tensor(idx, device=device))
+    key = (tuple(idx), device)
+    if key not in cache:
+        cache[key] = spans.h2d(torch.tensor(idx, device=device))
+    return cache[key]
+
+
 def smart_stack(values: Sequence[Any]) -> Any:
     """:func:`tree_stack` that recognizes rows of packs.
 
@@ -136,9 +185,7 @@ def smart_stack(values: Sequence[Any]) -> Any:
                     return parts[0]
                 return tree_map(lambda *ls: concatenate(ls, 0), *parts)
             if one_pack:
-                idx_arr = spans.h2d(torch.tensor(
-                    [v.index for v in values], device=_device(first.pack)
-                ))
+                idx_arr = _indices([v.index for v in values], _device(first.pack))
                 return tree_map(lambda a: a[idx_arr], first.pack)
             # Cross-pack scatter: one concatenate + one gather.
             packs: List[Any] = []
@@ -152,9 +199,7 @@ def smart_stack(values: Sequence[Any]) -> Any:
             structs = {tree_structure(p) for p in packs}
             if len(structs) == 1:
                 big = tree_map(lambda *ls: concatenate(ls, 0), *packs)
-                idx_arr = spans.h2d(torch.tensor(
-                    [offset[id(v.pack)] + v.index for v in values], device=_device(big)
-                ))
+                idx_arr = _indices([offset[id(v.pack)] + v.index for v in values], _device(big))
                 return tree_map(lambda a: a[idx_arr], big)
         except (ValueError, TypeError):
             pass  # heterogeneous row structures — slow path below
@@ -244,6 +289,112 @@ def _check_batch(out: Any, n: int, what: str, hint: str = "") -> None:
             )
 
 
+def sweep_signature(static: Tuple, inputs: Mapping[Any, Any], state: Sequence[Any],
+                    source_pack: Any) -> Optional[Tuple]:
+    """The key under which a sweep's call is captured and replayed:
+    ``static`` (the entry point and its static arguments), the tree
+    structure of ``(inputs, state, source_pack)``, each tensor leaf's shape,
+    dtype and device, and each other leaf's type and value.
+
+    ``None`` where the call is not one to capture: a leaf is a tensor off
+    the card or on a second card, no leaf is a tensor, a leaf is hashed by
+    identity or not at all (its value could change unseen), or the stream
+    is already capturing (an outer capture records the eager operations)."""
+    flat = _flatten_call(inputs, state, source_pack)
+    return None if flat is None else _signature(static, *flat)
+
+
+def _flatten_call(inputs, state, source_pack) -> Optional[Tuple[List[Any], Any]]:
+    try:
+        return tree_flatten((dict(inputs), list(state), source_pack))
+    except (TypeError, ValueError):  # keys that do not sort, or no mapping: eager raises
+        return None
+
+
+def _signature(static: Tuple, leaves: Sequence[Any], treedef: Any) -> Optional[Tuple]:
+    device = None
+    specs = []
+    for leaf in leaves:
+        if isinstance(leaf, torch.Tensor):
+            if leaf.device.type != "cuda" or device not in (None, leaf.device):
+                return None
+            device = leaf.device
+            specs.append((tuple(leaf.shape), leaf.dtype, leaf.device))
+        else:
+            if type(leaf).__hash__ in (None, object.__hash__):
+                return None
+            specs.append((type(leaf), leaf))
+    if device is None or torch.cuda.is_current_stream_capturing():
+        return None
+    key = (static, treedef, tuple(specs))
+    try:
+        hash(key)
+    except TypeError:  # a leaf whose hash raises
+        return None
+    return key
+
+
+def _cloned_results(results: Tuple[Dict[int, Any], List[Any]], packed: bool):
+    """Copies of a captured sweep's packed results, which the graph's next
+    replay overwrites: one clone a pack, rows of one pack still rows of one
+    clone; ``packed=False`` then materializes the rows."""
+    clones: Dict[int, Any] = {}
+
+    def copy(value):
+        if isinstance(value, PackRef):
+            pack = clones.get(id(value.pack))
+            if pack is None:
+                pack = clones[id(value.pack)] = tree_map(_clone, value.pack)
+            value = PackRef(pack, value.index, value.length)
+            return value if packed else materialize(value)
+        return tree_map(_clone, value)
+
+    marginals, state = results
+    return {vid: copy(v) for vid, v in marginals.items()}, [copy(v) for v in state]
+
+
+def _clone(x: Any) -> Any:
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+class _CapturedSweep:
+    """One sweep captured into a CUDA graph: the call's tensor leaves copied
+    into fixed buffers, the graph that runs the sweep from them, and the
+    packed results it writes."""
+
+    def __init__(self, sweep: Callable, treedef: Any, leaves: Sequence[Any]) -> None:
+        device = _device(leaves)
+        self.buffers = [_clone(x) for x in leaves]
+        self.uploads: Dict[Tuple, torch.Tensor] = {}
+        args = tree_unflatten(treedef, self.buffers)
+        outer, _CAPTURING.uploads = getattr(_CAPTURING, "uploads", None), self.uploads
+        try:
+            # A warm-up on a side stream first, as torch's rule for capture asks.
+            caller = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(caller)
+            with torch.cuda.stream(side):
+                sweep(*args)
+            caller.wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            # The outer stream context restores the caller's stream where a
+            # failed capture leaves torch.cuda.graph's own unrestored.
+            with torch.cuda.device(device), torch.cuda.stream(caller):
+                with torch.cuda.graph(self.graph):
+                    self.results = sweep(*args)
+        finally:
+            _CAPTURING.uploads = outer
+
+    def __call__(self, leaves: Sequence[Any], packed: bool):
+        with spans.span("compiled.replay"):
+            for buffer, leaf in zip(self.buffers, leaves):
+                if isinstance(leaf, torch.Tensor):
+                    buffer.copy_(leaf)
+            self.graph.replay()
+            _GRAPH["replays"] += 1
+            return _cloned_results(self.results, packed)
+
+
 class CompiledInference:
     """A factor-graph inference request compiled to a static batched program.
 
@@ -283,6 +434,11 @@ class CompiledInference:
         self.plan: Optional[LoweredPlan] = lower_schedule(self.schedule) if lower else None
         self._steady_state_cache = None
         self._full_plan: Optional[LoweredPlan] = None
+        # Sweeps on the card by signature: captured (least recently used
+        # first), seen once, and those whose capture failed.
+        self._graphs: "OrderedDict[Tuple, _CapturedSweep]" = OrderedDict()
+        self._seen: "OrderedDict[Tuple, None]" = OrderedDict()
+        self._eager: set = set()
 
     @property
     def full_plan(self) -> Optional[LoweredPlan]:
@@ -532,8 +688,6 @@ class CompiledInference:
     def _start(self, inputs, state, source_pack) -> Dict[int, Any]:
         with spans.span("boundary.inputs"):
             values: Dict[int, Any] = self._resolve_inputs(inputs, source_pack)
-            if state is None:
-                state = self.initial_state()
             for sig, val in zip(self.schedule.initials, state):
                 values[id(sig)] = val
             return values
@@ -548,6 +702,55 @@ class CompiledInference:
             }
             new_state = [out(values[id(s)]) for s in self.schedule.initials]
             return marginals, new_state
+
+    def _call(self, static: Tuple, sweep: Callable, inputs, state, source_pack, packed: bool):
+        """``sweep(values)`` over the call's resolved inputs, and its results.
+
+        On the card, the first call of a :func:`sweep_signature` runs
+        eagerly, the second is captured (a failed capture marks the
+        signature eager for good), and later ones replay the graph.  The
+        graph records packed results; ``packed`` only decides how their
+        copies are handed back, so it is no part of the signature."""
+        with spans.span("boundary.inputs"):
+            if state is None:
+                state = self.initial_state()
+            flat = _flatten_call(inputs, state, source_pack)
+            key = None if flat is None else _signature(static, *flat)
+
+        def eager(inputs, state, source_pack, packed=True):
+            values = self._start(inputs, state, source_pack)
+            sweep(values)
+            return self._results(values, packed)
+
+        if key is None:
+            return eager(inputs, state, source_pack, packed)
+        leaves, treedef = flat
+        captured = self._graphs.get(key)
+        if captured is not None:
+            self._graphs.move_to_end(key)
+            return captured(leaves, packed)
+        if key in self._seen:
+            del self._seen[key]
+            try:
+                captured = _CapturedSweep(eager, treedef, leaves)
+            except (RuntimeError, ValueError, TypeError):
+                # A rule that reads the card from the host (the stack helpers
+                # turn the capture's RuntimeError into the others); the eager
+                # call below raises again what is not the capture's.
+                torch.cuda.synchronize(_device(leaves))
+                self._eager.add(key)
+            else:
+                _GRAPH["captures"] += 1
+                self._graphs[key] = captured
+                if len(self._graphs) > GRAPH_CAP:
+                    self._graphs.popitem(last=False)
+                return captured(leaves, packed)
+        elif key not in self._eager:
+            self._seen[key] = None
+            if len(self._seen) > GRAPH_CAP:
+                self._seen.popitem(last=False)
+        _GRAPH["eager"] += 1
+        return eager(inputs, state, source_pack, packed)
 
     def iterate(
         self,
@@ -576,14 +779,17 @@ class CompiledInference:
         """
         if n_iterations < 1:
             raise ValueError(f"n_iterations must be >= 1, got {n_iterations}")
-        with spans.span("compiled.iterate"):
-            values = self._start(inputs, state, source_pack)
+
+        def sweep(values):
             for k in range(n_iterations):
                 if steady_state and k > 0:
                     self._execute_phases(values, self.steady_state_phases())
                 else:
                     self._execute_plan(values)
-            return self._results(values, packed)
+
+        with spans.span("compiled.iterate"):
+            return self._call(("iterate", n_iterations, bool(steady_state)), sweep,
+                              inputs, state, source_pack, packed)
 
     def fixed_point(
         self,
@@ -611,15 +817,18 @@ class CompiledInference:
             raise ValueError(f"n_iterations must be >= 1, got {n_iterations}")
         if mode not in ("steady_state", "dataflow"):
             raise ValueError(f"Unknown fixed_point mode: {mode!r}")
-        with spans.span("compiled.fixed_point"):
-            values = self._start(inputs, state, source_pack)
+
+        def sweep(values):
             self._execute_plan(values, self.full_plan)
             for _ in range(n_iterations - 1):
                 if mode == "dataflow":
                     self._execute_plan(values, self.full_plan)
                 else:
                     self._execute_phases(values, self.steady_state_phases())
-            return self._results(values, packed)
+
+        with spans.span("compiled.fixed_point"):
+            return self._call(("fixed_point", n_iterations, mode), sweep,
+                              inputs, state, source_pack, packed)
 
     def summary(self) -> str:
         out = self.schedule.summary()

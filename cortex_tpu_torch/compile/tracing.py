@@ -19,7 +19,8 @@ Unsynchronized times of the executor are its spans
 ``compiled.run`` around a sweep, ``boundary.inputs`` around its inputs,
 ``compiled.gather`` and ``compiled.writeback`` around each group's and
 each scan step's stacks and write-backs, ``rules.<kind>`` around each
-batched rule call.  So :func:`profile_run`'s Chrome trace holds the
+batched rule call, ``compiled.replay`` around a replayed sweep's copies in,
+graph launch and copies out (no rule runs there).  So :func:`profile_run`'s Chrome trace holds the
 program's spans on the clock of the card's kernels, and after the block
 ``spans.calls()`` holds one record a call (each layer's self time and the
 counters' increments, such as ``copy.h2d.calls``, ``copy.h2d.bytes`` and

@@ -28,7 +28,9 @@ emitted too, and count to the ``setup`` layer of a call they run in.
 Counters are plain integers in one registry (:func:`counter_group`,
 :func:`counts`), grouped by what they count: ``launch`` (each hand kernel's
 launches, ``ops.kernels.LAUNCHES``), ``copy.h2d`` (``calls`` and ``bytes`` of
-the port's uploads to the card, :func:`h2d`) and ``spans`` (``dropped``).
+the port's uploads to the card, :func:`h2d`), ``compiled.graph`` (the
+executor's ``captures``, ``replays`` and ``eager`` sweeps on the card) and
+``spans`` (``dropped``).
 """
 
 from __future__ import annotations

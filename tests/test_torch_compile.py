@@ -461,3 +461,261 @@ def test_chip_smoke_generic_main_path_rehearses_on_cpu():
         "float64 RTS", "LGSSM.smooth scan", "lower=False", "hand-written sweep", "port on cpu",
         "iterate"}
     assert len(checks) == 10
+
+
+# -- captured sweeps: the signature, and the CPU path ------------------------------------
+
+PE = PC.executor
+
+
+def _fake_cuda(*shape, dtype=torch.float32, device="cuda"):
+    """A tensor that claims the card, made without one (shape, dtype and
+    device only)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return torch.empty(shape, dtype=dtype, device=device)
+
+
+def _signature_call(change=None):
+    """``sweep_signature``'s arguments for a chain-like call on the card,
+    with one thing changed."""
+    call = dict(static=("iterate", 1, False), inputs={("marginal", 3): _fake_cuda(4)},
+                state=[_fake_cuda(2), 0.5], source_pack=_fake_cuda(12, 4))
+    if change == "shape":
+        call["source_pack"] = _fake_cuda(12, 5)
+    elif change == "dtype":
+        call["source_pack"] = _fake_cuda(12, 4, dtype=torch.float64)
+    elif change == "static":
+        call["static"] = ("iterate", 2, False)
+    elif change == "mode":
+        call["static"] = ("fixed_point", 1, "dataflow")
+    elif change == "value":
+        call["state"] = [_fake_cuda(2), 0.25]
+    elif change == "structure":
+        call["inputs"] = {("marginal", 4): _fake_cuda(4)}
+    elif change == "cpu leaf":
+        call["state"] = [torch.zeros(2), 0.5]
+    elif change == "second card":
+        call["state"] = [_fake_cuda(2, device="cuda:1"), 0.5]
+    elif change == "unhashable leaf":
+        call["state"] = [_fake_cuda(2), np.zeros(2)]
+    elif change == "identity-hashed leaf":
+        call["state"] = [_fake_cuda(2), PORT.models.ScalarNormal(0.0, 1.0)]
+    elif change == "keys that do not sort":
+        call["inputs"] = {("marginal", 3): _fake_cuda(4), 7: _fake_cuda(4)}
+    elif change == "no tensor":
+        call = dict(static=call["static"], inputs={}, state=[0.5], source_pack=None)
+    return call
+
+
+@pytest.mark.parametrize("change", [
+    None, "shape", "dtype", "static", "mode", "value", "structure",  # another key
+    "cpu leaf", "second card", "unhashable leaf", "identity-hashed leaf",  # not engaged
+    "keys that do not sort", "no tensor", "capturing"])
+def test_sweep_signature(change, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: change == "capturing")
+    base = PE.sweep_signature(**_signature_call())
+    key = PE.sweep_signature(**_signature_call(None if change == "capturing" else change))
+    if change is None:
+        assert key is not None and key == base and hash(key) == hash(base)
+    elif change in ("shape", "dtype", "static", "mode", "value", "structure"):
+        assert key is not None and key != base
+    else:
+        assert key is None
+
+
+def _chain_compiled(T=T_CHAIN):
+    engine, x, _, _ = PORT.models.make_chain_graph(T)
+    return PC.CompiledInference(engine, x, PORT.models.LGSSMChainBatched()), x
+
+
+def _calls():
+    """Each entry point on a small graph: ``(compiled, targets, call(k))``,
+    the k-th call's inputs drawn from seed k."""
+    chain, x = _chain_compiled()
+
+    def pack(k):
+        return torch.from_numpy(np.ascontiguousarray(_chain_data(k).T))
+
+    vmp, targets = _vmp(PORT, "mean_field", n=6, R=3)
+    state0 = _broadcast(PORT, vmp.initial_state(), 3)
+
+    def state(k):
+        return [tree.tree_map(lambda a: a * (1.0 + 0.1 * k), v) for v in state0]
+
+    return {
+        "run": (chain, x, lambda k: chain.run({}, source_pack=pack(k), packed=True)),
+        "run unpacked": (chain, x, lambda k: chain.run({}, source_pack=pack(k))),
+        "iterate": (vmp, targets, lambda k: vmp.iterate({}, 3, state(k))),
+        "iterate steady": (vmp, targets, lambda k: vmp.iterate({}, 3, state(k),
+                                                               steady_state=True)),
+        "fixed_point steady": (vmp, targets, lambda k: vmp.fixed_point({}, 3, state(k))),
+        "fixed_point dataflow": (vmp, targets,
+                                 lambda k: vmp.fixed_point({}, 3, state(k), mode="dataflow")),
+    }
+
+
+def _leaves(out, targets):
+    """Every tensor of a call's marginals of ``targets`` and its new state."""
+    marginals, state = out
+    got = [PC.smart_stack([marginals[v]]) for v in targets] + [PC.materialize(s) for s in state]
+    return [x for x in tree.tree_leaves(got) if isinstance(x, torch.Tensor)]
+
+
+@pytest.mark.parametrize("entry", list(_calls()))
+def test_a_cpu_call_runs_the_eager_sweep_and_counts_nothing(entry):
+    """On the CPU no call engages the capture: no ``compiled.graph``
+    counter moves, no signature is kept, and a call made again gives the
+    same tensors bit for bit (the parity tests above hold these calls
+    against JAX)."""
+    compiled, targets, call = _calls()[entry]
+    before = PC.executor.spans.counts()
+    outs = [call(k) for k in range(3)]
+    assert {k: n for k, n in PC.executor.spans.counts().items()
+            if k.startswith("compiled.graph.")} == {
+        k: n for k, n in before.items() if k.startswith("compiled.graph.")}
+    assert not compiled._graphs and not compiled._seen and not compiled._eager
+    again = call(2)
+    for a, b in zip(_leaves(outs[2], targets), _leaves(again, targets)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _result_tensors(results):
+    """The tensors of a sweep's packed results, in a fixed order."""
+    marginals, state = results
+    values = list(marginals.values()) + list(state)
+    return [x for v in values
+            for x in tree.tree_leaves(v.pack if isinstance(v, PC.PackRef) else v)
+            if isinstance(x, torch.Tensor)]
+
+
+class _CpuGraph(PE._CapturedSweep):
+    """A captured sweep with the CPU standing in for the card: the capture
+    runs the sweep from the buffers into the results it keeps, and a replay
+    runs it again from the buffers and writes into those same results, as a
+    graph does; ``fail`` makes the capture raise as a rule that reads the
+    card from the host does."""
+
+    fail = False
+
+    def __init__(self, sweep, treedef, leaves):
+        if self.fail:
+            raise RuntimeError("operation not permitted when stream is capturing")
+        self.buffers = [PE._clone(x) for x in leaves]
+        args = tree.tree_unflatten(treedef, self.buffers)
+        self.results = sweep(*args)
+
+        def replay():
+            for old, new in zip(_result_tensors(self.results), _result_tensors(sweep(*args))):
+                old.copy_(new)
+
+        self.graph = type("Graph", (), {"replay": staticmethod(replay)})()
+
+
+@pytest.fixture
+def cpu_card(monkeypatch):
+    """The capture's logic with the CPU standing in for the card: CPU
+    tensors engage it, and :class:`_CpuGraph` stands in for the graph."""
+
+    def signature(static, leaves, treedef):
+        return (static, treedef, tuple((tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
+                                       else x for x in leaves))
+
+    monkeypatch.setattr(PE, "_signature", signature)
+    monkeypatch.setattr(PE, "_CapturedSweep", _CpuGraph)
+    monkeypatch.setattr(_CpuGraph, "fail", False)
+    monkeypatch.setattr(PE, "GRAPH_CAP", 2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    counts = PE._GRAPH
+
+    def moved(before):
+        return {k: counts[k] - before[k] for k in counts}
+
+    return lambda: dict(counts), moved
+
+
+@pytest.mark.parametrize("entry", list(_calls()))
+def test_replays_match_the_eager_calls_and_stay_fresh(entry, cpu_card):
+    """The first call of a signature runs eagerly, the second captures, the
+    rest replay; each matches the eager call on its inputs bit for bit, and
+    call k's results are unchanged after call k + 1."""
+    snapshot, moved = cpu_card
+    compiled, targets, call = _calls()[entry]
+    before = snapshot()
+    outs, kept = [], []
+    for k in range(4):
+        outs.append(call(k))
+        kept.append([x.clone() for x in _leaves(outs[-1], targets)])
+    assert moved(before) == {"captures": 1, "replays": 3, "eager": 1}
+    for k, out in enumerate(outs):  # fresh: unchanged by the later calls
+        for a, b in zip(_leaves(out, targets), kept[k]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    compiled._graphs.clear()
+    compiled._seen.clear()
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(PE, "_signature", lambda *a: None)  # the eager sweep
+        for k, want in enumerate(kept):
+            for a, b in zip(_leaves(call(k), targets), want):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["new shape", "eviction", "failed capture"])
+def test_capture_keeps_a_graph_a_signature(case, cpu_card):
+    """A new shape is a new signature and captures anew; beyond the cap the
+    least recently used graph goes; a failed capture leaves its signature
+    eager for good, with the right values."""
+    snapshot, moved = cpu_card
+    compiled, x = _chain_compiled()
+
+    def run(T_pack=T_CHAIN, R=4, seed=0):
+        y = np.random.default_rng(seed).normal(size=(T_pack, R)).astype(np.float32)
+        out, _ = compiled.run({}, source_pack=torch.from_numpy(y), packed=True)
+        return PC.smart_stack([out[v] for v in x])
+
+    before = snapshot()
+    if case == "new shape":
+        run(R=4), run(R=4), run(R=5), run(R=5), run(R=4), run(R=5)
+        assert moved(before) == {"captures": 2, "replays": 4, "eager": 2}
+    elif case == "eviction":
+        for R in (3, 4, 5):  # GRAPH_CAP is 2 here: R = 3 goes
+            run(R=R), run(R=R)
+        assert [k[2][0][0] for k in compiled._graphs] == [(T_CHAIN, 4), (T_CHAIN, 5)]
+        run(R=4)  # a replay, now the most recently used
+        run(R=3), run(R=3)  # captured again, evicting R = 5
+        assert [k[2][0][0] for k in compiled._graphs] == [(T_CHAIN, 4), (T_CHAIN, 3)]
+        assert moved(before) == {"captures": 4, "replays": 5, "eager": 4}
+    else:
+        _CpuGraph.fail = True
+        got = [run(seed=k) for k in range(4)]
+        assert moved(before) == {"captures": 0, "replays": 0, "eager": 4}
+        assert len(compiled._eager) == 1 and not compiled._graphs and not compiled._seen
+        _CpuGraph.fail = False
+        want = _run_chain(PORT, np.random.default_rng(3).normal(size=(T_CHAIN, 4)).astype(
+            np.float32).T)[1]
+        torch.testing.assert_close(got[3].mean, want.mean, rtol=0, atol=0)
+        assert moved(before)["captures"] == 0
+
+
+@pytest.mark.parametrize("program", ["replays", "no counter", "no device record"])
+def test_graph_replays_per_call_reads_the_replay_counter(program, monkeypatch):
+    """The benchmark's reader of ``compiled.graph.replays``: the increment a
+    traced call, averaged; nothing from a program without the counter (a
+    parent checkout) or from a run with no device record (the CPU)."""
+    from pathlib import Path
+
+    from perfbench import devtrace, harness
+
+    spans = PE.spans
+    records = [spans.CallRecord(i, "compiled.run", 10 * i, 10 * i + 5, {"compiled": 5},
+                                {"compiled.graph.replays": n} if n else {})
+               for i, n in enumerate([1, 1, 0, 1])]
+    monkeypatch.setattr(spans, "calls", lambda: records)
+    if program == "no counter":
+        monkeypatch.setattr(spans, "counts", lambda: {"copy.h2d.calls": 0})
+    trace = devtrace.Trace(window_s=1.0, busy_s=0.0 if program == "no device record" else 0.5,
+                           calls=3)
+    run = harness.Run(cell=None, entry=None, setup_s=1.0, window=harness.Part(), trace=trace)
+    reader = harness.load_module(Path(harness.__file__).parent / "metrics"
+                                 / "graph_replays_per_call.py")
+    assert reader.read(run) == (pytest.approx(2 / 3) if program == "replays" else None)

@@ -383,6 +383,198 @@ def test_chip_smoke_generic_main_path_on_card(cuda):
     assert kernels.LAUNCHES == before  # the generic path runs none of K1-K4
 
 
+# -- the compiled path's captured sweeps ------------------------------------------------
+
+
+def _graph_counts():
+    from cortex_tpu_torch.compile import executor
+
+    return dict(executor._GRAPH)
+
+
+def _moved(before):
+    return {k: n - before[k] for k, n in _graph_counts().items()}
+
+
+def _eagerly(call):
+    """``call()`` with the capture off: the eager sweep on the card."""
+    from cortex_tpu_torch.compile import executor
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(executor, "_signature", lambda *args: None)
+        return call()
+
+
+def _card_chain(T=16, processor=None):
+    from cortex_tpu_torch.compile import CompiledInference
+
+    engine, x, _, _ = models.make_chain_graph(T)
+    return CompiledInference(engine, x, processor or models.LGSSMChainBatched()), x
+
+
+def _chain_family(compiled, x, pack):
+    from cortex_tpu_torch.compile import smart_stack
+
+    marginals, _ = compiled.run({}, source_pack=pack, packed=True)
+    fam = smart_stack([marginals[v] for v in x])
+    return fam.mean, fam.variance
+
+
+@pytest.mark.cuda
+def test_chain_replays_match_the_eager_sweep_and_stay_fresh(cuda):
+    """The chain at T = 16, R = 256 on three batches: the first call runs
+    eagerly, the second captures, the third replays; each equals the eager
+    sweep on its batch, and call k's results are unchanged after call k + 1."""
+    compiled, x = _card_chain()
+    packs = [_walk(k, (256, 16), cuda).T.contiguous() for k in range(3)]
+    before = _graph_counts()
+    got, kept = [], []
+    for pack in packs:
+        got.append(_chain_family(compiled, x, pack))
+        kept.append([t.clone() for t in got[-1]])
+    assert _moved(before) == {"captures": 1, "replays": 2, "eager": 1}
+    for pack, out, want in zip(packs, got, kept):
+        for g, k, e in zip(out, want, _eagerly(lambda: _chain_family(compiled, x, pack))):
+            assert torch.equal(g, k)  # fresh: untouched by the later calls
+            torch.testing.assert_close(g, e, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["iterate", "iterate steady", "fixed_point steady",
+                                   "fixed_point dataflow"])
+def test_vmp_replays_match_the_eager_sweep(cuda, entry):
+    """The mean-field VMP graph (n = 8, R = 64, 4 iterations) with a state
+    on the card: its third call replays a graph and matches the eager sweep
+    within the bars of tests/test_torch_compile.py (rtol 1e-5, atol 1e-6)."""
+    from cortex_tpu_torch.compile import CompiledInference, dep_role_key
+    from cortex_tpu_torch.utils import tree
+
+    R, n = 64, 8
+    obs = 0.1 * _walk(3, (R, n), cuda)
+    engine, x, _, ss, on = models.make_mean_field_ssm_graph(n, list(obs.T), device=cuda)
+    compiled = CompiledInference(engine, [ss, on] + x, models.MeanFieldSSMBatched(),
+                                 refine_key=dep_role_key)
+    state0 = [tree.tree_map(lambda a: a.expand((R,)) if a.dim() == 0 else a, v)
+              for v in compiled.initial_state()]
+    kind, _, mode = entry.partition(" ")
+
+    def call(k):
+        state = [tree.tree_map(lambda a: a * (1.0 + 0.1 * k), v) for v in state0]
+        if kind == "iterate":
+            return compiled.iterate({}, 4, state, steady_state=mode == "steady")
+        return compiled.fixed_point({}, 4, state, mode="dataflow" if mode == "dataflow"
+                                    else "steady_state")
+
+    before = _graph_counts()
+    outs = [call(k) for k in range(3)]
+    assert _moved(before) == {"captures": 1, "replays": 2, "eager": 1}
+    for k, (marginals, state) in enumerate(outs):
+        want_m, want_s = _eagerly(lambda: call(k))
+        got = tree.tree_leaves(([marginals[v] for v in [ss, on] + x], state))
+        want = tree.tree_leaves(([want_m[v] for v in [ss, on] + x], want_s))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_a_new_shape_captures_anew_and_the_cap_evicts(cuda, monkeypatch):
+    from cortex_tpu_torch.compile import executor
+
+    monkeypatch.setattr(executor, "GRAPH_CAP", 2)
+    compiled, x = _card_chain()
+    before = _graph_counts()
+    for R in (32, 64, 96):  # the third capture evicts R = 32
+        for k in range(2):
+            _chain_family(compiled, x, _walk(k, (R, 16), cuda).T.contiguous())
+    assert _moved(before) == {"captures": 3, "replays": 3, "eager": 3}
+    assert [key[2][0][0] for key in compiled._graphs] == [(16, 64), (16, 96)]
+    pack = _walk(5, (32, 16), cuda).T.contiguous()
+    got = _chain_family(compiled, x, pack)  # R = 32 is first seen again: eager
+    assert _moved(before)["eager"] == 4
+    for g, w in zip(got, _eagerly(lambda: _chain_family(compiled, x, pack))):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_a_rule_that_reads_the_card_back_stays_eager(cuda):
+    """A rule that calls ``.item()`` cannot be captured: its signature runs
+    eagerly for good, with the eager values, and the caller's stream is
+    restored."""
+
+    class ReadsBack(models.LGSSMChainBatched):
+        def compute_message_to_variable(self, engine, variants, dep_values):
+            out = super().compute_message_to_variable(engine, variants, dep_values)
+            if out.variance.min().item() <= 0.0:
+                raise ValueError("a variance is not positive")
+            return out
+
+    compiled, x = _card_chain(processor=ReadsBack())
+    plain, _ = _card_chain()
+    stream = torch.cuda.current_stream()
+    before = _graph_counts()
+    for k in range(4):
+        pack = _walk(k, (128, 16), cuda).T.contiguous()
+        got = _chain_family(compiled, x, pack)
+        assert torch.cuda.current_stream() == stream
+        for g, w in zip(got, _eagerly(lambda: _chain_family(plain, x, pack))):
+            assert torch.equal(g, w)
+    assert _moved(before) == {"captures": 0, "replays": 0, "eager": 4}
+    assert len(compiled._eager) == 1 and not compiled._graphs
+
+
+@pytest.mark.cuda
+def test_an_outer_capture_records_the_eager_sweep_once(cuda):
+    """Inside an outer ``torch.cuda.graph`` the sweep is recorded eagerly
+    by the outer capture; nothing is captured twice, and the outer graph's
+    replays give the eager sweep's values."""
+    from cortex_tpu_torch.compile import smart_stack
+
+    compiled, x = _card_chain()
+    pack = _walk(0, (128, 16), cuda).T.contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _chain_family(compiled, x, pack)  # warm-up: a first call, eager
+    torch.cuda.current_stream().wait_stream(side)
+    before = _graph_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        marginals, _ = compiled.run({}, source_pack=pack, packed=True)
+    assert _moved(before) == {"captures": 0, "replays": 0, "eager": 0}
+    assert not compiled._graphs
+    for k in (1, 2):
+        fresh = _walk(k, (128, 16), cuda).T.contiguous()
+        pack.copy_(fresh)
+        graph.replay()
+        fam = smart_stack([marginals[v] for v in x])  # its index upload outside the capture
+        for g, w in zip((fam.mean, fam.variance),
+                        _eagerly(lambda: _chain_family(compiled, x, fresh))):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+    assert _moved(before) == {"captures": 0, "replays": 0, "eager": 0}
+
+
+@pytest.mark.cuda
+def test_a_profiled_replay_holds_the_replay_span(cuda, tmp_path):
+    import json
+
+    from cortex_tpu_torch.compile import tracing
+    from cortex_tpu_torch.utils import spans
+
+    compiled, x = _card_chain()
+    for k in range(2):  # eager, then the capture
+        _chain_family(compiled, x, _walk(k, (64, 16), cuda).T.contiguous())
+    spans.reset()
+    with tracing.profile_run(str(tmp_path)):
+        _chain_family(compiled, x, _walk(2, (64, 16), cuda).T.contiguous())
+    names = {e.get("name") for e in json.loads((tmp_path / "trace.json").read_text())[
+        "traceEvents"]}
+    assert {"compiled.run", "compiled.replay"} <= names
+    (record,) = spans.calls()
+    assert record.counts.get("compiled.graph.replays") == 1
+    assert "compiled" in record.layers and "rules" not in record.layers
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["GMM", "GMMFull"])
 def test_gmm_fits_on_card_match_the_cpu(cuda, name):
