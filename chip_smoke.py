@@ -2355,6 +2355,39 @@ def parallel_main_path_rank(torch, device: str, workdir, shapes=None, n_ref: int
             "times": times, "seconds": seconds}
 
 
+# (A, Q, H, R) of the time-sharded smoother's cases held against the plain
+# reference of the lgssm-long configuration (perfbench/configs/).
+LONG_PARAMS = {"unit": (1.0, 1.0, 1.0, 1.0), "params": (0.9, 0.3, 1.2, 1.5)}
+
+
+def time_sharded_spans(torch, parallel, y, mesh) -> dict:
+    """What one time-sharded call on this rank's block ``y`` records: outside
+    a profiler session (``"off"``: no call record; ``mesh.stats`` and the
+    ``collective`` counters count as ever) and inside one (``"on"``: each
+    call record, by name, duration, layers and counters)."""
+    from cortex_tpu_torch.utils import spans
+
+    def counted(fn):
+        stats, counts = (mesh.stats.calls, mesh.stats.bytes), spans.counts()
+        fn()
+        now = spans.counts()
+        return {"stats": [mesh.stats.calls - stats[0], mesh.stats.bytes - stats[1]],
+                "counts": {k: now[k] - counts.get(k, 0) for k in now
+                           if k.startswith("collective.")}}
+
+    def call():
+        parallel.lgssm_smooth_time_sharded(y, mesh=mesh)
+
+    spans.reset()
+    off = dict(counted(call), records=len(spans.calls()))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        on = counted(call)
+    on["records"] = [{"name": r.name, "ns": r.end_ns - r.start_ns, "layers": r.layers,
+                      "counts": r.counts} for r in spans.calls()]
+    spans.reset()
+    return {"off": off, "on": on}
+
+
 def parallel_parity_rank(torch, device: str, workdir) -> dict:
     """The body of one rank of the parity world of tests/test_torch_parallel.py:
     every entry point of the parallel layer on the inputs that the test wrote
@@ -2410,6 +2443,11 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
         out = collectives(tmesh, time_sharded)
         blocks[f"time {tag} mean"], blocks[f"time {tag} variance"] = out
     error("ragged time split", lambda: parallel.shard(torch.ones(2, 62), by_time))
+    y = parallel.shard(data["long_y"], by_time)
+    for tag, params in LONG_PARAMS.items():
+        out = parallel.lgssm_smooth_time_sharded(y, *params, mesh=tmesh)
+        blocks[f"long {tag} mean"], blocks[f"long {tag} variance"] = out
+    info["spans"] = time_sharded_spans(torch, parallel, y, tmesh)
     y = parallel.shard(data["combined_y"], NamedSharding(two, P("replica", "time")))
     blocks["combined mean"] = parallel.lgssm_smooth_time_sharded(y, mesh=two).mean
 

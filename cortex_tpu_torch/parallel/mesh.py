@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import spans
 from ..utils.tree import as_float32_tensor
 
 __all__ = [
@@ -95,6 +96,11 @@ def init_distributed(
     dist.init_process_group(backend, init_method=init_method, world_size=world_size,
                             rank=rank, **kwargs)
     return world_size
+
+
+# Every mesh's exchanges in this process, as each mesh's CollectiveStats counts
+# its own: calls, and bytes sent by this rank.
+_COLLECTIVE = spans.counter_group("collective", ("calls", "bytes"))
 
 
 @dataclasses.dataclass
@@ -272,11 +278,13 @@ def gather(block: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
 
 
 class _Exchange:
-    """Times one exchange into ``mesh.stats``; on a staged axis, moves tensors
-    to the host and back."""
+    """Times one exchange into ``mesh.stats`` and the ``collective`` counters,
+    inside the span ``name`` (``collective.<operation>``); on a staged axis,
+    moves tensors to the host and back, inside the span too."""
 
-    def __init__(self, mesh: Mesh, axis: str, nbytes: int):
+    def __init__(self, mesh: Mesh, axis: str, nbytes: int, name: str):
         self.mesh, self.staged, self.nbytes = mesh, mesh.staged(axis), nbytes
+        self.span = spans.span(name)
 
     def out(self, tensor: torch.Tensor) -> torch.Tensor:
         return tensor.cpu() if self.staged else tensor
@@ -285,6 +293,7 @@ class _Exchange:
         return tensor.to(self.mesh.device) if self.staged else tensor
 
     def __enter__(self):
+        self.span.__enter__()
         if self.staged:
             torch.cuda.synchronize(self.mesh.device)
         self.start = time.perf_counter()
@@ -295,13 +304,17 @@ class _Exchange:
         stats.calls += 1
         stats.bytes += self.nbytes
         stats.seconds += time.perf_counter() - self.start
+        _COLLECTIVE["calls"] += 1
+        _COLLECTIVE["bytes"] += self.nbytes
+        self.span.__exit__(*exc)
         return False
 
 
 def all_gather(tensor: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Every rank's ``tensor`` along ``axis``, stacked in axis order: shape
     ``(mesh.shape[axis], *tensor.shape)`` (``lax.all_gather``)."""
-    with _Exchange(mesh, axis, tensor.numel() * tensor.element_size()) as ex:
+    with _Exchange(mesh, axis, tensor.numel() * tensor.element_size(),
+                   "collective.all_gather") as ex:
         mine = ex.out(tensor.contiguous())
         parts = [torch.empty_like(mine) for _ in range(mesh.shape[axis])]
         dist.all_gather(parts, mine, group=mesh.groups[axis])
@@ -310,7 +323,8 @@ def all_gather(tensor: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 
 def all_reduce(tensor: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The sum of every rank's ``tensor`` along ``axis`` (``lax.psum``)."""
-    with _Exchange(mesh, axis, tensor.numel() * tensor.element_size()) as ex:
+    with _Exchange(mesh, axis, tensor.numel() * tensor.element_size(),
+                   "collective.all_reduce") as ex:
         total = ex.out(tensor).clone()
         dist.all_reduce(total, group=mesh.groups[axis])
         return ex.back(total)
@@ -332,7 +346,8 @@ def send_recv(
         return None
     group = mesh.groups[axis]
     sending = send_to is not None
-    with _Exchange(mesh, axis, tensor.numel() * tensor.element_size() * sending) as ex:
+    with _Exchange(mesh, axis, tensor.numel() * tensor.element_size() * sending,
+                   "collective.send_recv") as ex:
         ops: List[dist.P2POp] = []
         if sending:
             ops.append(dist.P2POp(dist.isend, ex.out(tensor.contiguous()),

@@ -12,10 +12,14 @@ and the chain's message passing is reformulated as an associative scan
 3. each rank folds the exclusive prefix of the earlier blocks' elements into
    its local scan.
 
-The same runs in reverse for the smoother pass.  Explicit SPMD: every rank
-of the axis calls the function on its own block (see
-:func:`cortex_tpu_torch.parallel.shard`) and gets the marginals of its own
-block back; the split of the global ``T`` over the ranks is
+The same runs in reverse for the smoother pass.  A call is one span,
+``parallel.time_sharded`` (``parallel.mv_time_sharded`` for the vector
+chain), the root of its call record (:mod:`cortex_tpu_torch.utils.spans`);
+its two exchanges are ``collective.all_gather`` spans inside it.
+
+Explicit SPMD: every rank of the axis calls the function on its own block
+(see :func:`cortex_tpu_torch.parallel.shard`) and gets the marginals of its
+own block back; the split of the global ``T`` over the ranks is
 :func:`~cortex_tpu_torch.parallel.shard`'s, which raises on a ragged one.
 """
 
@@ -51,6 +55,7 @@ from ..ops.chains_mv import (
     _mT,
     _solve_small,
 )
+from ..utils import spans
 from ..utils.tree import to_tensor
 from .mesh import Mesh, all_gather
 
@@ -104,6 +109,11 @@ def lgssm_smooth_time_sharded(
     Exact Kalman/RTS marginals of the block, shaped like ``y``; each sweep
     exchanges one filter 5-tuple and one smoother 3-tuple per rank.
     """
+    with spans.span("parallel.time_sharded"):
+        return _smooth_time_sharded(y, A, Q, H, R, mesh, time_axis, prior)
+
+
+def _smooth_time_sharded(y, A, Q, H, R, mesh: Mesh, time_axis: str, prior) -> ChainMarginals:
     ndev = mesh.shape[time_axis]
     my = mesh.axis_index(time_axis)
     yT = y.movedim(-1, 0)
@@ -197,7 +207,11 @@ def mv_lgssm_smooth_time_sharded(
     fully-NaN steps predict through), at the cost of per-step lane-major
     m-system solves in the element build.
     """
+    with spans.span("parallel.mv_time_sharded"):
+        return _mv_smooth_time_sharded(y, A, Q, H, R, prior, mesh, time_axis, missing)
 
+
+def _mv_smooth_time_sharded(y, A, Q, H, R, prior, mesh: Mesh, time_axis: str, missing: str):
     if missing not in ("none", "component"):
         raise ValueError(
             f"unknown missing={missing!r}; expected 'none' or 'component'"

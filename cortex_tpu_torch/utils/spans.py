@@ -2,7 +2,13 @@
 
 A span is a ``with`` block named after the layer it times: the name starts
 with the layer and a dot (``model.``, ``boundary.``, ``compiled.``,
-``rules.``, ``ops.``, ``launch.``, ``setup.``).
+``rules.``, ``ops.``, ``launch.``, ``setup.``, ``parallel.``,
+``collective.``).  ``parallel.`` spans are the roots of the parallel layer's
+calls (``parallel.time_sharded``, ``parallel.mv_time_sharded``): the rank's
+own work on its block; ``collective.`` spans are the exchanges between
+ranks (``collective.all_gather``, ``.all_reduce``, ``.send_recv``, one an
+exchange, a staged exchange's copies through the host included; an NCCL
+exchange's span is its enqueue, its device time the profiler's to read).
 
 - While no ``torch.profiler`` session is active, :func:`span` makes one
   check (``torch.autograd.profiler._is_profiler_enabled``, the flag that
@@ -29,8 +35,10 @@ Counters are plain integers in one registry (:func:`counter_group`,
 :func:`counts`), grouped by what they count: ``launch`` (each hand kernel's
 launches, ``ops.kernels.LAUNCHES``), ``copy.h2d`` (``calls`` and ``bytes`` of
 the port's uploads to the card, :func:`h2d`), ``compiled.graph`` (the
-executor's ``captures``, ``replays`` and ``eager`` sweeps on the card) and
-``spans`` (``dropped``).
+executor's ``captures``, ``replays`` and ``eager`` sweeps on the card),
+``collective`` (``calls`` and ``bytes`` sent by this rank, of every mesh's
+exchanges, the numbers each mesh's ``CollectiveStats`` counts) and ``spans``
+(``dropped``).
 """
 
 from __future__ import annotations

@@ -11,11 +11,15 @@ that import torch only, with a 60 s collective timeout and a time limit of
 its own.  Bars: the JAX tests' own (tests/test_parallel.py, tests/test_hgf.py):
 replica-sharded 1e-5, time-sharded scalar and replica x time 1e-3, pipelined
 1e-4, vector time-sharded 2e-3 (covariances 5e-3 with missing components),
-the Beta-Bernoulli closed form 1e-6, SLDS 1e-5, HGF streaming 1e-5.
+the Beta-Bernoulli closed form 1e-6, SLDS 1e-5, HGF streaming 1e-5.  The
+same world holds the time-sharded smoother to the plain float64 reference of
+the benchmark's lgssm-long configuration (perfbench/configs/), within that
+configuration's limits, and records its spans and counters.
 """
 
 import functools
 import importlib.util
+import json
 import time
 from pathlib import Path
 
@@ -63,6 +67,7 @@ def _inputs():
         "replica_y": walk[0].normal(size=(64, 32)).cumsum(axis=-1),
         "psum_y": walk[1].normal(size=(32, 16)),
         "time_y": walk[2].normal(size=(4, 64)).cumsum(axis=-1),
+        "long_y": np.random.default_rng(18).normal(size=(8, 256)).cumsum(axis=-1),
         "combined_y": walk[3].normal(size=(8, 32)).cumsum(axis=-1),
         "pipe_y": walk[4].normal(size=(16, 64)).cumsum(axis=-1),
         "bernoulli": (walk[5].random((12, 64)) < 0.4),
@@ -256,6 +261,60 @@ def test_time_sharded_smoothing_matches_jax(world, use_prior):
     _close(_whole(blocks, f"time {tag} mean", 1), scan.mean, 1e-3)
     # One all_gather a sweep, two a call.
     assert all(info["collectives"]["time_sharded"] == 2 for info in infos)
+
+
+def _perfbench_config(name):
+    return json.loads((REPO / "perfbench" / "configs" / f"{name}.json").read_text())
+
+
+def _long_reference():
+    path = REPO / "perfbench" / "configs" / "lgssm_long_reference.py"
+    spec = importlib.util.spec_from_file_location("lgssm_long_reference", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("tag", ["unit", "params"])
+def test_time_sharded_smoothing_matches_the_long_reference(world, tag):
+    """The lgssm-long configuration's plain reference (float64, sequential,
+    flat prior) against the four ranks' blocks of 64 steps, within the
+    configuration's limits."""
+    inputs, _, blocks = world
+    reference, config = _long_reference(), _perfbench_config("lgssm_long")
+    params = _chip_smoke().LONG_PARAMS[tag]
+    want = reference.smooth(torch.from_numpy(inputs["long_y"]), *params)
+    assert blocks[0][f"long {tag} mean"].shape == (8, 64)
+    got = {k: torch.from_numpy(_whole(blocks, f"long {tag} {k}", 1)) for k in ("mean", "variance")}
+    nums = reference.compare(config, got, want)
+    assert set(nums) == set(config["limits"])
+    assert all(nums[k] <= config["limits"][k] for k in nums), nums
+
+
+def test_a_time_sharded_call_is_one_record_of_its_layers(world):
+    """Inside a profiler session a call is one parallel.time_sharded record,
+    its time all parallel or collective, and 32 R bytes sent by each rank in
+    its two exchanges (a filter 5-tuple and a smoother 3-tuple of float32)."""
+    inputs, infos, _ = world
+    R = inputs["long_y"].shape[0]
+    for info in infos:
+        on = info["spans"]["on"]
+        (record,) = on["records"]
+        assert record["name"] == "parallel.time_sharded"
+        assert set(record["layers"]) == {"parallel", "collective"}
+        assert sum(record["layers"].values()) == record["ns"]
+        assert record["counts"] == {"collective.calls": 2, "collective.bytes": 32 * R}
+        assert on["counts"] == record["counts"]
+
+
+def test_spans_are_off_outside_a_session_and_collective_stats_count_as_ever(world):
+    inputs, infos, _ = world
+    R = inputs["long_y"].shape[0]
+    for info in infos:
+        off, on = info["spans"]["off"], info["spans"]["on"]
+        assert off["records"] == 0
+        assert off["stats"] == on["stats"] == [2, 32 * R]
+        assert off["counts"] == {"collective.calls": 2, "collective.bytes": 32 * R}
 
 
 def test_time_sharded_rejects_ragged_split(world):
