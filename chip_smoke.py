@@ -155,6 +155,13 @@ single-device runs.  Phases, each printing JSON lines:
     fields at 65,536 replicas; each result float64 numpy where the JAX
     package computes in numpy, else on the card in JAX's dtype and equal bit
     for bit to the tensor-fed call; no launch of K1-K4; the phase's seconds.
+26. ``time_sharded_kernel``: the time-sharded smoother's three CUDA passes
+    (``csrc/lgssm_time_sharded.cu``) at the four-card cell's shape, 10,000
+    lanes x 65,536 steps over 4 ranks of 16,384: a world of threads on the
+    card (``time_sharded_ranks``), ranks first, middle and last, through the
+    passes and through the log-depth scan route they replace, with and
+    without a per-lane prior; 3 launches a rank; then a middle rank's passes
+    timed alone (device time) against its scan route.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 A failed check raises: the exit code is non-zero and the last line is not
@@ -2360,6 +2367,157 @@ def parallel_main_path_rank(torch, device: str, workdir, shapes=None, n_ref: int
 LONG_PARAMS = {"unit": (1.0, 1.0, 1.0, 1.0), "params": (0.9, 0.3, 1.2, 1.5)}
 
 
+def time_sharded_ranks(torch, sweep, y, ranks: int, params, prior=None) -> tuple:
+    """``y``'s chain, its time axis split over ``ranks``, smoothed by one of
+    ``parallel/time_sharded.py``'s local sweeps (``_sweep_by_passes``,
+    ``_sweep_by_scan``) in one process: a thread a rank, each on its
+    contiguous block, exchanging its elements through a shared board in place
+    of the ``all_gather``.  Returns the whole ``(mean, variance)``, joined
+    along time."""
+    import threading
+
+    step = y.shape[-1] // ranks
+    boards, outs, errors = {}, [None] * ranks, []
+    barrier = threading.Barrier(ranks)
+
+    def rank(r):
+        exchanges = [0]
+
+        def gather(elem):
+            board = boards.setdefault(exchanges[0], [None] * ranks)
+            exchanges[0] += 1
+            board[r] = elem
+            barrier.wait()
+            return list(board)
+
+        try:
+            block = y[..., r * step:(r + 1) * step].contiguous()
+            outs[r] = sweep(block, *params, prior, r, ranks, gather)
+        except BaseException as err:  # the other ranks must not wait for this one
+            errors.append(err)
+            barrier.abort()
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(ranks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return tuple(torch.cat([out[i] for out in outs], -1) for i in range(2))
+
+
+# Phase 26: lgssm.timeshard-4chip's chain, 10,000 lanes x 4 blocks of 16,384
+# steps; the scan route over TS_LANE_CHUNK lanes at a time (~176 B of scan
+# state a step-lane: ~5.8 GB a rank, four ranks on the one card).  Cases: the
+# cell's model with its flat prior, another model with a per-lane prior.
+TS_RANKS, TS_LANES, TS_STEPS = 4, 10_000, 16_384
+TS_LANE_CHUNK = 2_000
+TS_CASES = (((1.0, 1.0, 1.0, 1.0), False), ((0.9, 0.3, 1.0, 1.5), True))
+# The passes and the scan route differ by float32 rounding over the walk's
+# magnitude: the K1 bar, atol and rtol.  A pass that reads a wrong element or
+# fold is off by the walk's steps, O(1).
+TS_TOL = 1e-4
+# Float32 operations of a step-lane over the three passes: a filter combine
+# with one reciprocal (pass 1), a belief step with one reciprocal, a smoother
+# element with one division and a smoother combine (2), a smoother element and
+# a combine (3), each reciprocal or division counted as 8.
+TS_OPS_PER_STEP = 90
+
+
+def time_sharded_bound(lanes: int, T: int, segments: int) -> dict:
+    """The three passes' least time on a ``(lanes, T)`` block: y read twice,
+    the filtered moments written and read, the marginals written (32 B a
+    step-lane), and the per-segment and per-lane tuples."""
+    return _bound(32 * lanes * T + 4 * lanes * (2 * 8 * segments + 5 + 3 + 2 + 3),
+                  TS_OPS_PER_STEP * lanes * T)
+
+
+def phase_time_sharded_kernel(torch, kernels, card: str) -> dict:
+    """Phase 26: every rank's block of the four-card cell's chain through the
+    passes (``_sweep_by_passes``) and through the scan route
+    (``_sweep_by_scan``, the ATen operations they replace: their plain
+    version), in worlds of ``TS_RANKS`` threads on the card, within
+    ``TS_TOL``; ``launch.lgssm_time_sharded`` zeroed before each passes world
+    and read after it, 3 a rank.  Then rank 1's block (a middle rank) timed:
+    the passes' device time and the scan route's by CUDA events.  Returns the
+    largest error, the launches and the times."""
+    from cortex_tpu_torch.ops import kernels_time_sharded as kts
+    from cortex_tpu_torch.parallel import time_sharded
+
+    gen = torch.Generator("cuda").manual_seed(TS_STEPS)
+    T = TS_RANKS * TS_STEPS
+    y = torch.randn(TS_LANES, T, device="cuda", generator=gen).cumsum(-1)
+    worst, launches = 0.0, 0
+    for params, with_prior in TS_CASES:
+        prior = None
+        if with_prior:
+            prior = (torch.randn(TS_LANES, device="cuda", generator=gen),
+                     torch.rand(TS_LANES, device="cuda", generator=gen) + 0.5)
+        kernels.LAUNCHES["lgssm_time_sharded"] = 0
+        got = time_sharded_ranks(torch, time_sharded._sweep_by_passes, y, TS_RANKS, params,
+                                 prior)
+        torch.cuda.synchronize()
+        launched = kernels.LAUNCHES["lgssm_time_sharded"]
+        if launched != 3 * TS_RANKS:
+            raise SmokeFailure(f"the time-sharded world launched {launched} passes, "
+                               f"not {3 * TS_RANKS}")
+        launches += launched
+        errs = {"mean": 0.0, "variance": 0.0}
+        for lo in range(0, TS_LANES, TS_LANE_CHUNK):
+            rows = slice(lo, lo + TS_LANE_CHUNK)
+            want = time_sharded_ranks(torch, time_sharded._sweep_by_scan, y[rows].contiguous(),
+                                      TS_RANKS, params,
+                                      None if prior is None else tuple(q[rows] for q in prior))
+            for field, g, w in zip(errs, got, want):
+                g = g[rows]
+                err = (g - w).abs()
+                if not bool(torch.isfinite(g).all()) or bool(
+                        (err > TS_TOL + TS_TOL * w.abs()).any()):
+                    raise SmokeFailure(f"time-sharded passes {field}, lanes {lo}-"
+                                       f"{lo + TS_LANE_CHUNK}: max abs err {float(err.max())} "
+                                       f"outside atol = rtol = {TS_TOL}")
+                errs[field] = max(errs[field], float(err.max()))
+            del want
+        worst = max(worst, *errs.values())
+        emit(phase="time_sharded_kernel", shape=[TS_LANES, T], ranks=TS_RANKS, params=params,
+             prior="per lane" if with_prior else None, segments=kts.plan(TS_LANES, TS_STEPS),
+             launches=launched, tol=TS_TOL, max_abs_err=errs,
+             against="the scan route (_sweep_by_scan) in the same world")
+        del got
+    block = y[:, TS_STEPS:2 * TS_STEPS].contiguous()
+    del y
+    torch.cuda.empty_cache()
+    one, zero = torch.ones(TS_LANES, device="cuda"), torch.zeros(TS_LANES, device="cuda")
+    params = TS_CASES[0][0]
+    entering, leaving = block[:, 0].contiguous(), block[:, -1].contiguous()
+
+    def passes():
+        sweep = kts.LocalSweep(block, *params, first=False, last=False)
+        sweep.filter_total()
+        sweep.filter_fillin(entering, one)
+        return sweep.smoother_fillin(zero, leaving, one)
+
+    def scan():
+        return time_sharded._sweep_by_scan(block, *params, None, 1, TS_RANKS,
+                                           lambda elem: [elem] * TS_RANKS)
+
+    flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
+    # CUDA events, host time left out: after the earlier phases' profiles the
+    # profiler loses some of these kernels' records (1.61 ms against 2.36).
+    ms = queued_ms(torch, passes, flush)
+    plain_ms = median_ms(torch, scan, flush, runs=3, warmup=1)
+    segments, length = kts.plan(TS_LANES, TS_STEPS)
+    bound = time_sharded_bound(TS_LANES, TS_STEPS, segments)
+    emit(phase="time_sharded_times", shape=[TS_LANES, TS_STEPS], rank="middle",
+         segments=segments, segment_length=length, device_ms=ms, plain_ms=plain_ms,
+         plain="_sweep_by_scan on the same block, CUDA events", **bound, card=card)
+    del block, flush
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "bound": bound}
+
+
 def time_sharded_spans(torch, parallel, y, mesh) -> dict:
     """What one time-sharded call on this rank's block ``y`` records: outside
     a profiler session (``"off"``: no call record; ``mesh.stats`` and the
@@ -2396,6 +2554,7 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
     returns the meshes' shapes, the messages of the ValueErrors raised and
     the collectives each call made."""
     from cortex_tpu_torch import compile as port_compile, core, dists, models, ops, parallel
+    from cortex_tpu_torch.ops import kernels
 
     P, NamedSharding = parallel.P, parallel.NamedSharding
     rank = torch.distributed.get_rank()
@@ -2420,10 +2579,11 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
     by_time = NamedSharding(tmesh, P(None, "time"))
 
     def collectives(mesh, fn):
-        """``fn()`` and the collectives it made."""
-        before = mesh.stats.calls
+        """``fn()`` and the collectives it made, and the bytes this rank sent."""
+        before, nbytes = mesh.stats.calls, mesh.stats.bytes
         value = fn()
         info.setdefault("collectives", {})[fn.__name__] = mesh.stats.calls - before
+        info.setdefault("collective bytes", {})[fn.__name__] = mesh.stats.bytes - nbytes
         return value
 
     y = parallel.shard_replicas(data["replica_y"], rmesh)
@@ -2434,6 +2594,7 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
     blocks["psum total"] = parallel.global_sum(
         models.LGSSM().log_evidence(parallel.shard_replicas(data["psum_y"], rmesh)), rmesh)
 
+    launches = kernels.LAUNCHES["lgssm_time_sharded"]
     y = parallel.shard(data["time_y"], by_time)
     for tag, prior in (("no prior", None), ("prior", (0.5, 2.0))):
         def time_sharded(prior=prior):
@@ -2442,6 +2603,13 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
 
         out = collectives(tmesh, time_sharded)
         blocks[f"time {tag} mean"], blocks[f"time {tag} variance"] = out
+
+    def time_sharded_float64():
+        return parallel.lgssm_smooth_time_sharded(y.double(), A=0.9, Q=0.3, H=1.0, R=1.5,
+                                                  mesh=tmesh)
+
+    out = collectives(tmesh, time_sharded_float64)
+    blocks["time float64 mean"], blocks["time float64 variance"] = out
     error("ragged time split", lambda: parallel.shard(torch.ones(2, 62), by_time))
     y = parallel.shard(data["long_y"], by_time)
     for tag, params in LONG_PARAMS.items():
@@ -2450,6 +2618,8 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
     info["spans"] = time_sharded_spans(torch, parallel, y, tmesh)
     y = parallel.shard(data["combined_y"], NamedSharding(two, P("replica", "time")))
     blocks["combined mean"] = parallel.lgssm_smooth_time_sharded(y, mesh=two).mean
+    # Blocks on the host take the scan: no time-sharded pass is launched.
+    info["time-sharded launches"] = kernels.LAUNCHES["lgssm_time_sharded"] - launches
 
     n, R = data["bernoulli"].shape
     graph = core.BipartiteFactorGraph()
@@ -4270,7 +4440,7 @@ BOUNDARY_SHAPES = {"lgssm": (R_MAIN, T_MAIN), "hmm": (HMM_R, HMM_T, HMM_K, HMM_M
 # Each kernel's launches over the phase's numpy-fed calls (the server replays
 # a captured graph and counts none).
 BOUNDARY_LAUNCHES = {"lgssm_smooth": 1, "hmm_fb": 1, "hmm_fb_counts": 1 + HMM_ITERS,
-                     "hgf_filter": 1}
+                     "hgf_filter": 1, "lgssm_time_sharded": 0}
 BOUNDARY_BUDGET_S = 15.0  # the phase's aim on an H100
 
 
@@ -4771,6 +4941,9 @@ def main() -> None:
     boundary = phase_boundary(torch, models, ops, kernels, serving["servers"]["lgssm"][0],
                               device["nvidia_smi"])
     values = phase_values(torch, kernels, device["nvidia_smi"])
+    ts = phase_time_sharded_kernel(torch, kernels, device["nvidia_smi"])
+    worst["lgssm_time_sharded"] = ts["max_abs_err"]
+    launches["lgssm_time_sharded"] = ts["launches"]
     # Each kernel's launches over every run of a main path that launches it;
     # on the serving path, those captured into its graphs (one a bucket, each
     # replayed per request).
@@ -4825,6 +4998,21 @@ def main() -> None:
             "plain_ms": hgf_times["plain"],
             **hgf_bound(HGF_R, HGF_T, 5, 4),
             "library_ms": None,  # no one PyTorch call computes an HGF filter
+        },
+        {
+            "name": "lgssm_time_sharded",
+            "route": "cuda",
+            "source": "cortex_tpu_torch/csrc/lgssm_time_sharded.cu",
+            # No Pallas kernel: the JAX package runs lax.associative_scan there.
+            "replaces": None,
+            "launches": sum(by_phase["lgssm_time_sharded"].values()),
+            "launches_by_phase": by_phase["lgssm_time_sharded"],
+            "max_abs_err": worst["lgssm_time_sharded"],
+            # A middle rank's three passes on its 10,000 x 16,384 block.
+            "ms": ts["ms"],
+            "plain_ms": ts["plain_ms"],
+            **ts["bound"],
+            "library_ms": None,  # no one PyTorch call computes a time-sharded sweep
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

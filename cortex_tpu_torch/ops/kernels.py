@@ -22,8 +22,9 @@ captures its launch, and a saved program loads wherever this package's
 ``ops`` is imported.
 
 ``LAUNCHES`` counts each kernel's launches (this module's and those of
-:mod:`~cortex_tpu_torch.ops.kernels_hmm` and
-:mod:`~cortex_tpu_torch.ops.kernels_hgf`), so that a run can show that its
+:mod:`~cortex_tpu_torch.ops.kernels_hmm`,
+:mod:`~cortex_tpu_torch.ops.kernels_hgf` and
+:mod:`~cortex_tpu_torch.ops.kernels_time_sharded`), so that a run can show that its
 path went through the kernels; it is the ``launch`` group of the counters of
 :mod:`~cortex_tpu_torch.utils.spans`.  A CUDA graph counts its kernels once,
 when it is captured: a replay runs them without Python.  :func:`_library`
@@ -53,7 +54,8 @@ __all__ = [
     "sweep_coefficients",
 ]
 
-LAUNCHES = spans.counter_group("launch", ("lgssm_smooth", "hmm_fb", "hmm_fb_counts", "hgf_filter"))
+LAUNCHES = spans.counter_group(
+    "launch", ("lgssm_smooth", "hmm_fb", "hmm_fb_counts", "hgf_filter", "lgssm_time_sharded"))
 
 # The kernels' operators, in one namespace named after the package
 # (``cortex_tpu_torch``; another checkout imported beside it under another
@@ -246,6 +248,15 @@ def _library() -> ctypes.CDLL:
     # u, finals, five track pointers, R, T, bf16, nine float constants, stream
     lib.hgf_filter_f32.argtypes = [ptr] * 7 + [i64, i32, i32] + [f32] * 9 + [ptr]
     lib.hgf_filter_f32.restype = i32
+    # The time-sharded sweep's passes: pointers, then lanes, T, segments, segment
+    # length, the first / last flags, the model's numbers (a host pointer), stream.
+    plan = [i64, i32, i32, i32]
+    lib.lgssm_ts_filter_total_f32.argtypes = [ptr] * 5 + plan + [i32, ptr, ptr]
+    lib.lgssm_ts_filter_total_f32.restype = i32
+    lib.lgssm_ts_filter_fillin_f32.argtypes = [ptr] * 10 + plan + [i32, i32, ptr, ptr]
+    lib.lgssm_ts_filter_fillin_f32.restype = i32
+    lib.lgssm_ts_smoother_fillin_f32.argtypes = [ptr] * 6 + plan + [i32, ptr, ptr]
+    lib.lgssm_ts_smoother_fillin_f32.restype = i32
     return lib
 
 

@@ -12,7 +12,11 @@ and the chain's message passing is reformulated as an associative scan
 3. each rank folds the exclusive prefix of the earlier blocks' elements into
    its local scan.
 
-The same runs in reverse for the smoother pass.  A call is one span,
+The same runs in reverse for the smoother pass.  On a float32 block on the
+card the rank's own work is three CUDA passes that each read the block once
+(:class:`~cortex_tpu_torch.ops.kernels_time_sharded.LocalSweep`: a sequential
+fold and fill-in per lane, cut into time segments); any other block runs the
+log-depth scan.  A call is one span,
 ``parallel.time_sharded`` (``parallel.mv_time_sharded`` for the vector
 chain), the root of its call record (:mod:`cortex_tpu_torch.utils.spans`);
 its two exchanges are ``collective.all_gather`` spans inside it.
@@ -55,6 +59,7 @@ from ..ops.chains_mv import (
     _mT,
     _solve_small,
 )
+from ..ops.kernels_time_sharded import LocalSweep
 from ..utils import spans
 from ..utils.tree import to_tensor
 from .mesh import Mesh, all_gather
@@ -114,8 +119,54 @@ def lgssm_smooth_time_sharded(
 
 
 def _smooth_time_sharded(y, A, Q, H, R, mesh: Mesh, time_axis: str, prior) -> ChainMarginals:
+    """This rank's sweep: the CUDA passes on a float32 block on the card, the
+    log-depth scan on any other block."""
     ndev = mesh.shape[time_axis]
     my = mesh.axis_index(time_axis)
+
+    def gather(elem):
+        return _gather_elems(elem, mesh, time_axis)
+
+    sweep = _sweep_by_passes if _takes_passes(y) else _sweep_by_scan
+    return sweep(y, A, Q, H, R, prior, my, ndev, gather)
+
+
+def _takes_passes(y: torch.Tensor) -> bool:
+    """Whether the block ``y`` takes the CUDA passes: float32 on the card."""
+    return y.device.type == "cuda" and y.dtype == torch.float32 and y.numel() > 0
+
+
+def _sweep_by_passes(y, A, Q, H, R, prior, my: int, ndev: int, gather) -> ChainMarginals:
+    """The block's sweep as :class:`~cortex_tpu_torch.ops.kernels_time_sharded.
+    LocalSweep`'s three passes, each reading the block once, around the same
+    two exchanges as :func:`_sweep_by_scan`; ``gather(elem)`` is every rank's
+    ``elem`` in axis order.  A strided block is copied first."""
+    shape = y.shape
+    block = y.reshape(-1, shape[-1]).contiguous()
+    lanes = block.shape[0]
+    first, last = my == 0, my == ndev - 1
+    lane_prior = None
+    if first and prior is not None:
+        lane_prior = tuple(
+            to_tensor(p, dtype=y.dtype, device=y.device).expand(shape[:-1]).reshape(lanes)
+            for p in prior)
+    sweep = LocalSweep(block, A, Q, H, R, first=first, last=last, prior=lane_prior)
+
+    gathered = gather(_FilterElem(*sweep.filter_total()))
+    one, zero = torch.ones_like(block[:, 0]), torch.zeros_like(block[:, 0])
+    prefix = _exclusive_prefix(
+        gathered, _filter_combine, _FilterElem(one, zero, zero, zero, zero), my)
+    sgathered = gather(_SmootherElem(*sweep.filter_fillin(prefix.b, prefix.C)))
+    suffix = _exclusive_suffix(
+        sgathered, _smoother_combine, _SmootherElem(one, zero, zero), my)
+    mean, variance = sweep.smoother_fillin(*suffix)
+    return ChainMarginals(mean.view(shape), variance.view(shape))
+
+
+def _sweep_by_scan(y, A, Q, H, R, prior, my: int, ndev: int, gather) -> ChainMarginals:
+    """The block's sweep as local associative scans, folded with the earlier
+    and later blocks' elements from ``gather`` (every rank's element in axis
+    order)."""
     yT = y.movedim(-1, 0)
 
     def full(value):
@@ -147,7 +198,7 @@ def _smooth_time_sharded(y, A, Q, H, R, mesh: Mesh, time_axis: str, prior) -> Ch
 
     # -- local scan + cross-rank prefix fold ------------------------------
     local = _associative_scan(_filter_combine, elems)
-    gathered = _gather_elems(_FilterElem(*(f[-1] for f in local)), mesh, time_axis)
+    gathered = gather(_FilterElem(*(f[-1] for f in local)))
     one, zero = torch.ones_like(yT[0]), torch.zeros_like(yT[0])
     prefix = _exclusive_prefix(
         gathered, _filter_combine, _FilterElem(one, zero, zero, zero, zero), my)
@@ -167,7 +218,7 @@ def _smooth_time_sharded(y, A, Q, H, R, mesh: Mesh, time_axis: str, prior) -> Ch
     selems = _SmootherElem(E, g, L)
 
     slocal = _associative_scan(_smoother_combine, selems, reverse=True)
-    sgathered = _gather_elems(_SmootherElem(*(f[0] for f in slocal)), mesh, time_axis)
+    sgathered = gather(_SmootherElem(*(f[0] for f in slocal)))
     suffix = _exclusive_suffix(
         sgathered, _smoother_combine, _SmootherElem(one, zero, zero), my)
     sfinal = _smoother_combine(suffix, slocal)

@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc::
 
     python3 kernel_probe.py compare OTHER...  # this tree's kernels against others'
     python3 kernel_probe.py breakdown OTHER   # OTHER's kernels with parts cut out
-    python3 kernel_probe.py ... --kernels hmm # only some: k1, hmm, k4 (breakdown: pair)
+    python3 kernel_probe.py ... --kernels hmm # only some: k1, hmm, k4, ts (breakdown: pair)
 
 ``OTHER`` is the root of another checkout of this repository, for example an
 earlier commit unpacked with ``git archive`` into the git-ignored ``build/``.
@@ -20,7 +20,13 @@ in turns (others, this, then the reverse), by the device time that
 ``torch.profiler`` reports, and reports how far each tree's result lies from
 the first's.  For this tree it also times K2 and K3 at K=4, 8 and 16 on each
 of its small-K paths (the pair path, a lane group a replica), forced through
-``kernels_hmm.PAIR_K_MAX``.
+``kernels_hmm.PAIR_K_MAX``.  ``ts`` times the time-sharded smoother's three
+passes (``ops/kernels_time_sharded.py``, a hand-written kernel with no Pallas
+counterpart) on one rank's block of the ``lgssm.timeshard-4chip`` cell,
+10,000 x 16,384 (the whole chain on one rank: prior-free first step, terminal
+last step), each pass alone, and the ATen scan route they replace on the same
+block; it reports each pass's register report and how far the passes'
+marginals lie from the scan route's.  A tree without the passes is skipped.
 
 ``breakdown`` builds variants of OTHER's kernel sources with one part cut
 out each, written as scratch sources under ``build/probe/`` (git-ignored) and
@@ -66,6 +72,12 @@ OTHER_NAME = "cortex_tpu_torch_other"
 
 K1_SHAPES = ((10_000, 100), (100_000, 100))
 K4_SHAPE = (65_536, 256)
+TS_SHAPE = (10_000, 16_384)
+# The passes' kernels and the bytes each moves a step-lane: y read (pass 1);
+# y read, the filtered moments written (2); those read, the marginals written (3).
+TS_PASSES = {"filter_total": ("filter_total_kernel", 4),
+             "filter_fillin": ("filter_fillin_kernel", 12),
+             "smoother_fillin": ("smoother_fillin_kernel", 16)}
 HMM_SHAPES = ((4096, 64, 4), (65_536, 64, 4))
 # K2/K3 at K=4, 8 and 16 on each small-K path: PAIR_K_MAX 0 forces the lane
 # groups.  At K=16 the pair path's rows do not fit: it takes the lane groups.
@@ -318,6 +330,53 @@ def hmm_rows(torch, smoke, packages: dict, flush, shapes=HMM_SHAPES, setups=None
                      max_abs_diff_gamma_vs_first=diff)
 
 
+def ts_rows(torch, smoke, packages: dict, flush) -> None:
+    """The time-sharded passes of each package that has them at TS_SHAPE,
+    each alone, then all three, and the ATen scan route on the same block."""
+    R, T = TS_SHAPE
+    y = torch.from_numpy(
+        np.random.default_rng(R).normal(size=(R, T)).cumsum(-1).astype(np.float32)).cuda()
+    one, zero = torch.ones(R, device="cuda"), torch.zeros(R, device="cuda")
+    params = (1.0, 1.0, 1.0, 1.0)
+    for label, pkg in packages.items():
+        try:
+            kts = importlib.import_module(f"{pkg.__name__}.ops.kernels_time_sharded")
+        except ImportError:
+            continue
+        ts = importlib.import_module(f"{pkg.__name__}.parallel.time_sharded")
+
+        def passes(kts=kts):
+            sweep = kts.LocalSweep(y, *params, first=True, last=True)
+            sweep.filter_total()
+            sweep.filter_fillin(zero, zero)
+            return sweep.smoother_fillin(one, zero, zero)
+
+        def scan(ts=ts):
+            return ts._sweep_by_scan(y, *params, None, 0, 1, lambda elem: [elem])
+
+        got, want = passes(), scan()
+        torch.cuda.synchronize()
+        diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        segments, length = kts.plan(R, T)
+        log = pkg._build.library_path().with_name(pkg._build.library_path().name + ".log")
+        report = log.read_text().split("== lgssm_time_sharded.cu")[-1].split("== ")[0]
+        emit(kernel="lgssm_time_sharded", tree=label, R=R, T=T, segments=segments,
+             segment_length=length, max_abs_diff_vs_scan=diff,
+             ptxas=[line for line in report.splitlines() if "registers" in line])
+        total_bytes = 0
+        for name, (kernel, nbytes) in TS_PASSES.items():
+            ms = smoke.device_ms(torch, passes, flush, (kernel,))
+            total_bytes += nbytes * R * T
+            emit(kernel=f"lgssm_time_sharded {name}", tree=label, R=R, T=T, device_ms=ms,
+                 bound_ms=nbytes * R * T / smoke.HBM_BYTES_PER_S * 1e3)
+        names = tuple(kernel for kernel, _ in TS_PASSES.values())
+        emit(kernel="lgssm_time_sharded all passes", tree=label, R=R, T=T,
+             device_ms=smoke.device_ms(torch, passes, flush, names),
+             bound_ms=total_bytes / smoke.HBM_BYTES_PER_S * 1e3,
+             plain_device_ms=smoke.device_ms(torch, scan, flush, runs=3),
+             plain="parallel/time_sharded.py::_sweep_by_scan, one rank")
+
+
 def hmm_path_rows(torch, smoke, pkg, flush) -> None:
     """This tree's K2 and K3 at K=8 and 16 on each small-K path."""
     k = pkg.ops.kernels_hmm
@@ -351,8 +410,8 @@ def main() -> None:
     parser.add_argument("mode", choices=("compare", "breakdown"))
     parser.add_argument("other", nargs="+", help="root of another checkout")
     parser.add_argument("--out", default=OUT, help="directory for probe.jsonl and the reports")
-    parser.add_argument("--kernels", default="k1,hmm,k4",
-                        help="comma-separated kernels to time: k1, hmm, k4")
+    parser.add_argument("--kernels", default="k1,hmm,k4,ts",
+                        help="comma-separated kernels to time: k1, hmm, k4, ts")
     args = parser.parse_args()
     OUT = os.path.abspath(args.out)
     which = set(args.kernels.split(","))
@@ -385,6 +444,8 @@ def main() -> None:
             hmm_path_rows(torch, smoke, packages["this"], flush)
         if "k4" in which:
             k4_rows(torch, smoke, packages, flush)
+        if "ts" in which:
+            ts_rows(torch, smoke, packages, flush)
         return
 
     other = import_other(os.path.abspath(args.other[0]))

@@ -15,6 +15,8 @@ sums the pairwise counts inside its backward pass: gamma atol 1e-5 and
 log-evidence rtol 1e-5 (the bars of tests/test_pallas_kernels.py), xi_sum
 rtol = atol = 1e-4.  The HGF kernel rounds each operation as its plain
 version does: 1e-5 (tests/test_hgf.py's bar), bf16 tracks within one ulp.
+The time-sharded smoother's CUDA passes and its log-depth scan, both on the
+card, differ by float32 rounding: 1e-4 (the K1 bar).
 The generic compiled path runs plain torch operations on the card; the BP
 chain and the mean-field VMP graph are held against the same calls on the
 CPU at 1e-5 and rtol 1e-4 (atol 1e-6).  So do the Gaussian mixtures and the
@@ -642,8 +644,80 @@ def test_parallel_worlds_on_card_match_the_single_device_path(cuda, tmp_path, ba
     for r in ranks:
         assert r["backend"] == backend and r["device"] == "cuda:0"
         assert r["launches"]["lgssm_smooth"] == 1 and r["launches"]["hgf_filter"] == 2
+        # Two time-sharded calls (no prior, prior), three passes each.
+        assert r["launches"]["lgssm_time_sharded"] == 6
         assert {"replica-sharded lgssm_smooth_fused", "time-sharded, no prior",
                 "time-sharded, prior"} <= {c["path"] for c in r["checks"]}
+
+
+# (lanes, T, ranks) of the time-sharded passes against the scan route: lanes
+# that fill no whole block of threads, blocks of 125 steps (no multiple of 4:
+# the scalar loads) and of 80, 32 and 32, middle ranks (3 and 4 ranks), and a
+# block cut by the plan itself (8 segments of 256 steps).
+TS_SHAPES = [(37, 160, 2), (300, 250, 2), (130, 96, 3), (1, 128, 4), (3_000, 4_096, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prior", [False, True], ids=["no prior", "prior"])
+@pytest.mark.parametrize("params", [(1.0, 1.0, 1.0, 1.0), (0.9, 0.3, 1.0, 1.5)], ids=str)
+@pytest.mark.parametrize("min_segment", [1, 300])
+@pytest.mark.parametrize("shape", TS_SHAPES, ids=str)
+def test_time_sharded_passes_match_the_scan_route_on_card(cuda, shape, min_segment, params,
+                                                          prior, monkeypatch):
+    """Every rank of a world of threads on the card (chip_smoke.time_sharded_ranks)
+    through the three CUDA passes and through the log-depth scan, each rank
+    folding the others' gathered elements: the same marginals within float32
+    rounding (the K1 bar, 1e-4), both within 1e-3 of the float64 smoother.
+    ``MIN_SEGMENT`` 1 cuts the short blocks into up to 32 segments, empty
+    ones included."""
+    from cortex_tpu_torch.ops import kernels_time_sharded
+    from cortex_tpu_torch.parallel import time_sharded
+
+    monkeypatch.setattr(kernels_time_sharded, "MIN_SEGMENT", min_segment)
+    smoke = _chip_smoke()
+    lanes, T, ranks = shape
+    y = _walk(T + lanes, (lanes, T), cuda)
+    p = None
+    if prior:
+        rng = np.random.default_rng(lanes)
+        p = (torch.from_numpy(rng.normal(size=lanes).astype(np.float32)).to(cuda),
+             torch.from_numpy((rng.random(lanes) + 0.5).astype(np.float32)).to(cuda))
+    got = smoke.time_sharded_ranks(torch, time_sharded._sweep_by_passes, y, ranks, params, p)
+    want = smoke.time_sharded_ranks(torch, time_sharded._sweep_by_scan, y, ranks, params, p)
+    torch.cuda.synchronize()
+    exact = ops.lgssm_smooth_scan(y.cpu().double(), *params,
+                                  prior=None if p is None else tuple(q.cpu().double() for q in p))
+    for g, w, x in zip(got, want, exact):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(g.cpu().double(), x, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_a_time_sharded_call_on_card_launches_three_passes(cuda):
+    """One rank's call launches each pass once (``launch.lgssm_time_sharded``
+    counts 3) and a strided block is copied before the passes, which take a
+    contiguous one only and count nothing when they refuse."""
+    from cortex_tpu_torch.ops import kernels_time_sharded
+    from cortex_tpu_torch.parallel import time_sharded
+
+    y = _walk(9, (500, 1024), cuda)
+
+    def call(block):
+        return time_sharded._sweep_by_passes(block, 0.9, 0.3, 1.0, 1.5, None, 0, 1,
+                                             lambda elem: [elem])
+
+    before = kernels.LAUNCHES["lgssm_time_sharded"]
+    want = call(y)
+    assert kernels.LAUNCHES["lgssm_time_sharded"] == before + 3
+    strided = y.t().contiguous().t()
+    assert not strided.is_contiguous()
+    got = call(strided)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lgssm_time_sharded"] == before + 6
+    torch.testing.assert_close(got.mean, want.mean, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels_time_sharded.LocalSweep(strided, 1.0, 1.0, 1.0, 1.0, first=True, last=True)
+    assert kernels.LAUNCHES["lgssm_time_sharded"] == before + 6
 
 
 ZOO_SMALL = {"nlssm": (16, 20), "gabp": (4, 8, 8, 60), "hmc": (64, 4, 100, 100, 8),

@@ -263,6 +263,33 @@ def test_time_sharded_smoothing_matches_jax(world, use_prior):
     assert all(info["collectives"]["time_sharded"] == 2 for info in infos)
 
 
+def test_each_time_sharded_call_sends_two_elements_and_nothing_more(world):
+    """Whatever the block's route, a call is two all_gathers: one filter
+    5-tuple and one smoother 3-tuple per lane, 32 R bytes of float32 (64 R of
+    float64) sent by each rank."""
+    inputs, infos, _ = world
+    R = inputs["time_y"].shape[0]
+    for info in infos:
+        assert info["collectives"]["time_sharded"] == 2
+        assert info["collective bytes"]["time_sharded"] == 32 * R
+        assert info["collectives"]["time_sharded_float64"] == 2
+        assert info["collective bytes"]["time_sharded_float64"] == 64 * R
+
+
+def test_time_sharded_blocks_on_the_host_take_the_scan(world):
+    """float32 and float64 blocks on the CPU take the log-depth scan: no
+    time-sharded pass is launched, and the float64 block gives the float64
+    single-device smoother's marginals."""
+    from cortex_tpu_torch.ops import lgssm_smooth_scan as port_scan
+
+    inputs, infos, blocks = world
+    assert all(info["time-sharded launches"] == 0 for info in infos)
+    want = port_scan(torch.from_numpy(inputs["time_y"]).double(), A=0.9, Q=0.3, H=1.0, R=1.5)
+    for field in ("mean", "variance"):
+        assert blocks[0][f"time float64 {field}"].dtype == torch.float64
+        _close(_whole(blocks, f"time float64 {field}", 1), getattr(want, field).numpy(), 1e-10)
+
+
 def _perfbench_config(name):
     return json.loads((REPO / "perfbench" / "configs" / f"{name}.json").read_text())
 

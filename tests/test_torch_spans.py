@@ -183,7 +183,8 @@ def test_a_numpy_input_counts_its_upload_and_its_bytes():
 
 def test_the_kernels_launch_counts_are_the_registrys_launch_group():
     assert kernels.LAUNCHES is spans.counter_group("launch")
-    assert set(kernels.LAUNCHES) == {"lgssm_smooth", "hmm_fb", "hmm_fb_counts", "hgf_filter"}
+    assert set(kernels.LAUNCHES) == {"lgssm_smooth", "hmm_fb", "hmm_fb_counts", "hgf_filter",
+                                     "lgssm_time_sharded"}
     before = kernels.LAUNCHES["hgf_filter"]
     kernels.LAUNCHES["hgf_filter"] += 2
     assert spans.counts()["launch.hgf_filter"] == before + 2
