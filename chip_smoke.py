@@ -159,9 +159,9 @@ single-device runs.  Phases, each printing JSON lines:
     (``csrc/lgssm_time_sharded.cu``) at the four-card cell's shape, 10,000
     lanes x 65,536 steps over 4 ranks of 16,384: a world of threads on the
     card (``time_sharded_ranks``), ranks first, middle and last, through the
-    passes and through the log-depth scan route they replace, with and
-    without a per-lane prior; 3 launches a rank; then a middle rank's passes
-    timed alone (device time) against its scan route.
+    passes and through their plain version in float64, with and without a
+    per-lane prior; 3 launches a rank; then a middle rank's passes timed
+    alone (device time) against their plain version in float32.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 A failed check raises: the exit code is non-zero and the last line is not
@@ -2046,33 +2046,27 @@ def run_rank(torch, spec: dict, rank: int) -> dict:
     return result
 
 
-def _rank_times(torch, fn, mesh, flush, runs: int) -> dict:
+def _rank_times(torch, fn, flush, runs: int) -> dict:
     """One sharded path's call time (CUDA events, median of ``runs``; the main
     path's run was the warm-up), its collectives and the bytes this rank sent
-    in them per call, the host's time in them (median of the same calls) and
-    its share of the call, and one profiled call's device time and kernels.  Every
-    rank calls ``fn`` the same number of times, so that their collectives
-    meet; only a path that makes no collective is profiled once more when its
-    profile holds no kernel record."""
+    in them per call (the ``collective`` counters' increments), and one
+    profiled call's device time and kernels.  Every rank calls ``fn`` the
+    same number of times, so that their collectives meet; only a path that
+    makes no collective is profiled once more when its profile holds no
+    kernel record."""
     torch.distributed.barrier()  # start each path together, whatever came before
-    calls, nbytes = mesh.stats.calls, mesh.stats.bytes
-    in_collectives = []
+    from cortex_tpu_torch.utils import spans
 
-    def call():
-        before = mesh.stats.seconds
-        fn()
-        in_collectives.append(mesh.stats.seconds - before)
-
-    ms = median_ms(torch, call, flush, runs=runs, warmup=0)
-    collectives = (mesh.stats.calls - calls) / runs
-    collective_bytes = (mesh.stats.bytes - nbytes) / runs
-    collective_ms = statistics.median(in_collectives) * 1e3
+    before = spans.counts()
+    ms = median_ms(torch, fn, flush, runs=runs, warmup=0)
+    after = spans.counts()
+    collectives = (after["collective.calls"] - before["collective.calls"]) / runs
+    collective_bytes = (after["collective.bytes"] - before["collective.bytes"]) / runs
     prof = _profile_once(torch, fn)
     if not prof["kernels"] and not collectives:
         prof = _profile_once(torch, fn)
     return {"ms": ms, "collectives_per_call": collectives,
-            "bytes_sent_per_call": collective_bytes, "collective_ms": collective_ms,
-            "collective_share": collective_ms / ms,
+            "bytes_sent_per_call": collective_bytes,
             "device_ms": prof["device_ms"] if prof["kernels"] else None,
             "host_share": 1.0 - prof["device_ms"] / ms if prof["kernels"] else None,
             "kernels_per_call": prof["kernels"], "copies_per_call": prof["copies"],
@@ -2228,24 +2222,24 @@ def parallel_main_path_rank(torch, device: str, workdir, shapes=None, n_ref: int
     # The profiles of the paths of few kernels come before those of tens of
     # thousands (after which the profiler may record no kernel for a while).
     paths = {
-        "replica-sharded lgssm_smooth_fused": (rmesh, lambda: ops.lgssm_smooth_fused(b1, **p)),
-        "all_converged": (rmesh, lambda: (parallel.all_converged(delta_ok, 1e-6, rmesh),
-                                          parallel.all_converged(delta_nan, 1e-6, rmesh))),
+        "replica-sharded lgssm_smooth_fused": lambda: ops.lgssm_smooth_fused(b1, **p),
+        "all_converged": lambda: (parallel.all_converged(delta_ok, 1e-6, rmesh),
+                                  parallel.all_converged(delta_nan, 1e-6, rmesh)),
     }
     for name, tracks in track_sets.items():
         paths[f"replica-sharded HGF.filter fused, {name}"] = (
-            rmesh, lambda tracks=tracks: hgf.filter(b5, method="fused", tracks=tracks))
+            lambda tracks=tracks: hgf.filter(b5, method="fused", tracks=tracks))
     paths.update({
-        "global_sum of the log evidence": (rmesh, lambda: parallel.global_sum(
-            models.LGSSM(**p).log_evidence(b1), rmesh)),
-        "time-sharded, no prior": (tmesh, lambda: parallel.lgssm_smooth_time_sharded(
-            b2, **p, mesh=tmesh)),
-        "time-sharded, prior": (tmesh, lambda: parallel.lgssm_smooth_time_sharded(
-            b2, **p, mesh=tmesh, prior=PAR_PRIOR)),
-        "vector time-sharded": (tmesh, lambda: parallel.mv_lgssm_smooth_time_sharded(
-            b3, *arrays[:4], arrays[4:], mesh=tmesh)),
-        "pipelined": (tmesh, lambda: parallel.lgssm_smooth_pipelined(
-            b2, **p, mesh=tmesh, n_micro=n_micro)),
+        "global_sum of the log evidence": lambda: parallel.global_sum(
+            models.LGSSM(**p).log_evidence(b1), rmesh),
+        "time-sharded, no prior": lambda: parallel.lgssm_smooth_time_sharded(
+            b2, **p, mesh=tmesh),
+        "time-sharded, prior": lambda: parallel.lgssm_smooth_time_sharded(
+            b2, **p, mesh=tmesh, prior=PAR_PRIOR),
+        "vector time-sharded": lambda: parallel.mv_lgssm_smooth_time_sharded(
+            b3, *arrays[:4], arrays[4:], mesh=tmesh),
+        "pipelined": lambda: parallel.lgssm_smooth_pipelined(
+            b2, **p, mesh=tmesh, n_micro=n_micro),
     })
 
     def streamed():
@@ -2257,15 +2251,15 @@ def parallel_main_path_rank(torch, device: str, workdir, shapes=None, n_ref: int
             session.push(c)
         return session.flush()
 
-    paths["replica-sharded HGF streaming"] = (rmesh, streamed)
-    paths.update({name: (rmesh, fn) for name, fn in zoo["paths"].items()})
+    paths["replica-sharded HGF streaming"] = streamed
+    paths.update(zoo["paths"])
 
     if dev.type == "cuda":
         torch.cuda.synchronize()
     stage("single-device references")
     for key in kernels.LAUNCHES:
         kernels.LAUNCHES[key] = 0
-    outs = {name: fn() for name, (_, fn) in paths.items()}
+    outs = {name: fn() for name, fn in paths.items()}
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
@@ -2353,9 +2347,9 @@ def parallel_main_path_rank(torch, device: str, workdir, shapes=None, n_ref: int
         # element (5 fields of R2 floats) with nothing queued before it.
         element = torch.ones(5 * R2, device=dev)
         paths["all_gather of one element alone"] = (
-            tmesh, lambda: parallel.all_gather(element, tmesh, "time"))
-        for name, (mesh, fn) in paths.items():
-            times[name] = _rank_times(torch, fn, mesh, flush, runs=PAR_RUNS.get(name, 3))
+            lambda: parallel.all_gather(element, tmesh, "time"))
+        for name, fn in paths.items():
+            times[name] = _rank_times(torch, fn, flush, runs=PAR_RUNS.get(name, 3))
         stage("times")
     return {"rank": rank, "world": world, "backend": torch.distributed.get_backend(),
             "device": str(dev), "shapes": shapes, "checks": checks, "launches": launches,
@@ -2367,14 +2361,15 @@ def parallel_main_path_rank(torch, device: str, workdir, shapes=None, n_ref: int
 LONG_PARAMS = {"unit": (1.0, 1.0, 1.0, 1.0), "params": (0.9, 0.3, 1.2, 1.5)}
 
 
-def time_sharded_ranks(torch, sweep, y, ranks: int, params, prior=None) -> tuple:
-    """``y``'s chain, its time axis split over ``ranks``, smoothed by one of
-    ``parallel/time_sharded.py``'s local sweeps (``_sweep_by_passes``,
-    ``_sweep_by_scan``) in one process: a thread a rank, each on its
-    contiguous block, exchanging its elements through a shared board in place
-    of the ``all_gather``.  Returns the whole ``(mean, variance)``, joined
-    along time."""
+def time_sharded_ranks(torch, y, ranks: int, params, prior=None) -> tuple:
+    """``y``'s chain, its time axis split over ``ranks``, smoothed by
+    ``parallel/time_sharded.py``'s sweep (``_sweep``) in one process: a
+    thread a rank, each on its contiguous block, exchanging its elements
+    through a shared board in place of the ``all_gather``.  Returns the whole
+    ``(mean, variance)``, joined along time."""
     import threading
+
+    from cortex_tpu_torch.parallel.time_sharded import _sweep
 
     step = y.shape[-1] // ranks
     boards, outs, errors = {}, [None] * ranks, []
@@ -2392,7 +2387,7 @@ def time_sharded_ranks(torch, sweep, y, ranks: int, params, prior=None) -> tuple
 
         try:
             block = y[..., r * step:(r + 1) * step].contiguous()
-            outs[r] = sweep(block, *params, prior, r, ranks, gather)
+            outs[r] = _sweep(block, *params, prior, r, ranks, gather)
         except BaseException as err:  # the other ranks must not wait for this one
             errors.append(err)
             barrier.abort()
@@ -2408,15 +2403,16 @@ def time_sharded_ranks(torch, sweep, y, ranks: int, params, prior=None) -> tuple
 
 
 # Phase 26: lgssm.timeshard-4chip's chain, 10,000 lanes x 4 blocks of 16,384
-# steps; the scan route over TS_LANE_CHUNK lanes at a time (~176 B of scan
-# state a step-lane: ~5.8 GB a rank, four ranks on the one card).  Cases: the
-# cell's model with its flat prior, another model with a per-lane prior.
+# steps; the reference, the plain passes in float64, over TS_LANE_CHUNK lanes
+# at a time (~80 B a step-lane: ~2.6 GB a rank, four ranks on the one card).
+# Cases: the cell's model with its flat prior, another model with a per-lane
+# prior.
 TS_RANKS, TS_LANES, TS_STEPS = 4, 10_000, 16_384
 TS_LANE_CHUNK = 2_000
 TS_CASES = (((1.0, 1.0, 1.0, 1.0), False), ((0.9, 0.3, 1.0, 1.5), True))
-# The passes and the scan route differ by float32 rounding over the walk's
-# magnitude: the K1 bar, atol and rtol.  A pass that reads a wrong element or
-# fold is off by the walk's steps, O(1).
+# The kernels and the float64 plain passes differ by float32 rounding over the
+# walk's magnitude: the K1 bar, atol and rtol.  A pass that reads a wrong
+# element or fold is off by the walk's steps, O(1).
 TS_TOL = 1e-4
 # Float32 operations of a step-lane over the three passes: a filter combine
 # with one reciprocal (pass 1), a belief step with one reciprocal, a smoother
@@ -2435,15 +2431,13 @@ def time_sharded_bound(lanes: int, T: int, segments: int) -> dict:
 
 def phase_time_sharded_kernel(torch, kernels, card: str) -> dict:
     """Phase 26: every rank's block of the four-card cell's chain through the
-    passes (``_sweep_by_passes``) and through the scan route
-    (``_sweep_by_scan``, the ATen operations they replace: their plain
-    version), in worlds of ``TS_RANKS`` threads on the card, within
-    ``TS_TOL``; ``launch.lgssm_time_sharded`` zeroed before each passes world
-    and read after it, 3 a rank.  Then rank 1's block (a middle rank) timed:
-    the passes' device time and the scan route's by CUDA events.  Returns the
-    largest error, the launches and the times."""
+    kernels (a float32 block) and through their plain version in float64, in
+    worlds of ``TS_RANKS`` threads on the card, within ``TS_TOL``;
+    ``launch.lgssm_time_sharded`` zeroed before each kernels' world and read
+    after it, 3 a rank.  Then rank 1's block (a middle rank) timed: the
+    kernels' device time and the float32 plain passes' by CUDA events.
+    Returns the largest error, the launches and the times."""
     from cortex_tpu_torch.ops import kernels_time_sharded as kts
-    from cortex_tpu_torch.parallel import time_sharded
 
     gen = torch.Generator("cuda").manual_seed(TS_STEPS)
     T = TS_RANKS * TS_STEPS
@@ -2455,8 +2449,7 @@ def phase_time_sharded_kernel(torch, kernels, card: str) -> dict:
             prior = (torch.randn(TS_LANES, device="cuda", generator=gen),
                      torch.rand(TS_LANES, device="cuda", generator=gen) + 0.5)
         kernels.LAUNCHES["lgssm_time_sharded"] = 0
-        got = time_sharded_ranks(torch, time_sharded._sweep_by_passes, y, TS_RANKS, params,
-                                 prior)
+        got = time_sharded_ranks(torch, y, TS_RANKS, params, prior)
         torch.cuda.synchronize()
         launched = kernels.LAUNCHES["lgssm_time_sharded"]
         if launched != 3 * TS_RANKS:
@@ -2466,11 +2459,11 @@ def phase_time_sharded_kernel(torch, kernels, card: str) -> dict:
         errs = {"mean": 0.0, "variance": 0.0}
         for lo in range(0, TS_LANES, TS_LANE_CHUNK):
             rows = slice(lo, lo + TS_LANE_CHUNK)
-            want = time_sharded_ranks(torch, time_sharded._sweep_by_scan, y[rows].contiguous(),
-                                      TS_RANKS, params,
-                                      None if prior is None else tuple(q[rows] for q in prior))
+            want = time_sharded_ranks(
+                torch, y[rows].double(), TS_RANKS, params,
+                None if prior is None else tuple(q[rows].double() for q in prior))
             for field, g, w in zip(errs, got, want):
-                g = g[rows]
+                g = g[rows].double()
                 err = (g - w).abs()
                 if not bool(torch.isfinite(g).all()) or bool(
                         (err > TS_TOL + TS_TOL * w.abs()).any()):
@@ -2483,7 +2476,7 @@ def phase_time_sharded_kernel(torch, kernels, card: str) -> dict:
         emit(phase="time_sharded_kernel", shape=[TS_LANES, T], ranks=TS_RANKS, params=params,
              prior="per lane" if with_prior else None, segments=kts.plan(TS_LANES, TS_STEPS),
              launches=launched, tol=TS_TOL, max_abs_err=errs,
-             against="the scan route (_sweep_by_scan) in the same world")
+             against="the plain passes in float64 in the same world")
         del got
     block = y[:, TS_STEPS:2 * TS_STEPS].contiguous()
     del y
@@ -2498,20 +2491,24 @@ def phase_time_sharded_kernel(torch, kernels, card: str) -> dict:
         sweep.filter_fillin(entering, one)
         return sweep.smoother_fillin(zero, leaving, one)
 
-    def scan():
-        return time_sharded._sweep_by_scan(block, *params, None, 1, TS_RANKS,
-                                           lambda elem: [elem] * TS_RANKS)
+    def plain():
+        sweep = kts.LocalSweep(block, *params, first=False, last=False)
+        sweep._filter_total_plain()
+        sweep._filter_fillin_plain(entering, one)
+        sweep._smoother_fillin_plain(zero, leaving, one)
+        return sweep.mean, sweep.variance
 
     flush = torch.ones(64 * 2**20 // 4, device="cuda")  # 64 MB, beyond the 50 MB L2
     # CUDA events, host time left out: after the earlier phases' profiles the
     # profiler loses some of these kernels' records (1.61 ms against 2.36).
     ms = queued_ms(torch, passes, flush)
-    plain_ms = median_ms(torch, scan, flush, runs=3, warmup=1)
+    plain_ms = median_ms(torch, plain, flush, runs=3, warmup=1)
     segments, length = kts.plan(TS_LANES, TS_STEPS)
     bound = time_sharded_bound(TS_LANES, TS_STEPS, segments)
     emit(phase="time_sharded_times", shape=[TS_LANES, TS_STEPS], rank="middle",
          segments=segments, segment_length=length, device_ms=ms, plain_ms=plain_ms,
-         plain="_sweep_by_scan on the same block, CUDA events", **bound, card=card)
+         plain="LocalSweep's float32 plain passes on the same block, CUDA events", **bound,
+         card=card)
     del block, flush
     torch.cuda.empty_cache()
     return {"max_abs_err": worst, "launches": launches, "ms": ms, "plain_ms": plain_ms,
@@ -2520,17 +2517,16 @@ def phase_time_sharded_kernel(torch, kernels, card: str) -> dict:
 
 def time_sharded_spans(torch, parallel, y, mesh) -> dict:
     """What one time-sharded call on this rank's block ``y`` records: outside
-    a profiler session (``"off"``: no call record; ``mesh.stats`` and the
-    ``collective`` counters count as ever) and inside one (``"on"``: each
-    call record, by name, duration, layers and counters)."""
+    a profiler session (``"off"``: no call record; the ``collective`` counters
+    count as ever) and inside one (``"on"``: each call record, by name,
+    duration, layers and counters)."""
     from cortex_tpu_torch.utils import spans
 
     def counted(fn):
-        stats, counts = (mesh.stats.calls, mesh.stats.bytes), spans.counts()
+        counts = spans.counts()
         fn()
         now = spans.counts()
-        return {"stats": [mesh.stats.calls - stats[0], mesh.stats.bytes - stats[1]],
-                "counts": {k: now[k] - counts.get(k, 0) for k in now
+        return {"counts": {k: now[k] - counts.get(k, 0) for k in now
                            if k.startswith("collective.")}}
 
     def call():
@@ -2555,6 +2551,7 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
     the collectives each call made."""
     from cortex_tpu_torch import compile as port_compile, core, dists, models, ops, parallel
     from cortex_tpu_torch.ops import kernels
+    from cortex_tpu_torch.utils import spans
 
     P, NamedSharding = parallel.P, parallel.NamedSharding
     rank = torch.distributed.get_rank()
@@ -2578,12 +2575,16 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
     error("-1 does not divide", lambda: parallel.make_mesh([("a", 3), ("b", -1)], device=device))
     by_time = NamedSharding(tmesh, P(None, "time"))
 
-    def collectives(mesh, fn):
-        """``fn()`` and the collectives it made, and the bytes this rank sent."""
-        before, nbytes = mesh.stats.calls, mesh.stats.bytes
+    def collectives(fn):
+        """``fn()`` and the collectives it made, and the bytes this rank sent
+        (the ``collective`` counters' increments)."""
+        before = spans.counts()
         value = fn()
-        info.setdefault("collectives", {})[fn.__name__] = mesh.stats.calls - before
-        info.setdefault("collective bytes", {})[fn.__name__] = mesh.stats.bytes - nbytes
+        after = spans.counts()
+        info.setdefault("collectives", {})[fn.__name__] = (
+            after["collective.calls"] - before["collective.calls"])
+        info.setdefault("collective bytes", {})[fn.__name__] = (
+            after["collective.bytes"] - before["collective.bytes"])
         return value
 
     y = parallel.shard_replicas(data["replica_y"], rmesh)
@@ -2601,14 +2602,14 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
             return parallel.lgssm_smooth_time_sharded(y, A=0.9, Q=0.3, H=1.0, R=1.5,
                                                       mesh=tmesh, prior=prior)
 
-        out = collectives(tmesh, time_sharded)
+        out = collectives(time_sharded)
         blocks[f"time {tag} mean"], blocks[f"time {tag} variance"] = out
 
     def time_sharded_float64():
         return parallel.lgssm_smooth_time_sharded(y.double(), A=0.9, Q=0.3, H=1.0, R=1.5,
                                                   mesh=tmesh)
 
-    out = collectives(tmesh, time_sharded_float64)
+    out = collectives(time_sharded_float64)
     blocks["time float64 mean"], blocks["time float64 variance"] = out
     error("ragged time split", lambda: parallel.shard(torch.ones(2, 62), by_time))
     y = parallel.shard(data["long_y"], by_time)
@@ -2618,7 +2619,7 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
     info["spans"] = time_sharded_spans(torch, parallel, y, tmesh)
     y = parallel.shard(data["combined_y"], NamedSharding(two, P("replica", "time")))
     blocks["combined mean"] = parallel.lgssm_smooth_time_sharded(y, mesh=two).mean
-    # Blocks on the host take the scan: no time-sharded pass is launched.
+    # Blocks on the host run the plain passes: no time-sharded pass is launched.
     info["time-sharded launches"] = kernels.LAUNCHES["lgssm_time_sharded"] - launches
 
     n, R = data["bernoulli"].shape
@@ -2655,7 +2656,7 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
         return parallel.mv_lgssm_smooth_time_sharded(
             y, data["mv_A"], data["mv_Q"], data["mv_H"], data["mv_R"], prior, mesh=tmesh)
 
-    blocks["mv mean"], blocks["mv cov"] = collectives(tmesh, mv_time_sharded)
+    blocks["mv mean"], blocks["mv cov"] = collectives(mv_time_sharded)
     y = parallel.shard(data["mvc_y"], by_time)
     args = (data["mvc_A"], data["mvc_Q"], data["mvc_H"], data["mvc_R"],
             (data["mvc_m0"], data["mvc_P0"]))
@@ -2670,7 +2671,7 @@ def parallel_parity_rank(torch, device: str, workdir) -> dict:
             return parallel.lgssm_smooth_pipelined(y, A=0.9, Q=0.3, H=1.2, R=1.5, mesh=tmesh,
                                                    prior=prior, n_micro=n_micro)
 
-        out = collectives(tmesh, pipelined)
+        out = collectives(pipelined)
         blocks[f"pipelined {tag} mean"], blocks[f"pipelined {tag} variance"] = out
     blocks["pipelined gaps mean"] = parallel.lgssm_smooth_pipelined(
         parallel.shard(data["pipe_nan_y"], by_time), A=0.95, Q=0.4, H=1.0, R=1.0,

@@ -28,7 +28,9 @@ captures its launch, and a saved program loads wherever this package's
 path went through the kernels; it is the ``launch`` group of the counters of
 :mod:`~cortex_tpu_torch.utils.spans`.  A CUDA graph counts its kernels once,
 when it is captured: a replay runs them without Python.  :func:`_library`
-builds and binds them all.  Each wrapper is an ``ops.`` span, its checks of
+builds and loads them all, one library, and declares K1's C signatures and
+the error string's; each other module declares its own kernels' on it at
+first use.  Each wrapper is an ``ops.`` span, its checks of
 the inputs a ``boundary.`` span and each CUDA implementation a ``launch.``
 span (:mod:`~cortex_tpu_torch.utils.spans`).
 """
@@ -240,23 +242,6 @@ def _library() -> ctypes.CDLL:
     lib.lgssm_smooth_global_f32.restype = i32
     lib.lgssm_cuda_error_string.argtypes = [i32]
     lib.lgssm_cuda_error_string.restype = ctypes.c_char_p
-    # lik, A, At, pi, gamma, [xi_sum,] log_evidence, R, T, K, group, alpha_in_smem, stream
-    lib.hmm_forward_backward_f32.argtypes = [ptr] * 6 + [i64, i32, i32, i32, i32, ptr]
-    lib.hmm_forward_backward_f32.restype = i32
-    lib.hmm_forward_backward_counts_f32.argtypes = [ptr] * 7 + [i64, i32, i32, i32, i32, ptr]
-    lib.hmm_forward_backward_counts_f32.restype = i32
-    # u, finals, five track pointers, R, T, bf16, nine float constants, stream
-    lib.hgf_filter_f32.argtypes = [ptr] * 7 + [i64, i32, i32] + [f32] * 9 + [ptr]
-    lib.hgf_filter_f32.restype = i32
-    # The time-sharded sweep's passes: pointers, then lanes, T, segments, segment
-    # length, the first / last flags, the model's numbers (a host pointer), stream.
-    plan = [i64, i32, i32, i32]
-    lib.lgssm_ts_filter_total_f32.argtypes = [ptr] * 5 + plan + [i32, ptr, ptr]
-    lib.lgssm_ts_filter_total_f32.restype = i32
-    lib.lgssm_ts_filter_fillin_f32.argtypes = [ptr] * 10 + plan + [i32, i32, ptr, ptr]
-    lib.lgssm_ts_filter_fillin_f32.restype = i32
-    lib.lgssm_ts_smoother_fillin_f32.argtypes = [ptr] * 6 + plan + [i32, ptr, ptr]
-    lib.lgssm_ts_smoother_fillin_f32.restype = i32
     return lib
 
 

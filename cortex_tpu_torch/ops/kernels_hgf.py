@@ -23,13 +23,16 @@ version round alike.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
 
 from ..utils import spans
 from ..utils.tree import as_tensors
-from .kernels import COSTS, LAUNCHES, NAMESPACE, OPS, _library, op
+from . import kernels
+from .kernels import COSTS, LAUNCHES, NAMESPACE, OPS, op
 
 __all__ = [
     "ALL_TRACKS",
@@ -127,6 +130,22 @@ def _hgf_filter_cpu(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_s
         tracks=[ALL_TRACKS[i] for i in tracks],
         track_dtype=torch.bfloat16 if bf16 else torch.float32)
     return torch.stack(finals), list(values)
+
+
+@functools.cache
+def _signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with K4's C signature declared: u, finals, five track
+    pointers, R, T, bf16, nine float constants, stream."""
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.hgf_filter_f32.argtypes = [ptr] * 7 + [i64, i32, i32] + [f32] * 9 + [ptr]
+    lib.hgf_filter_f32.restype = i32
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    """The kernels' one library (:func:`kernels._library`), K4's signature
+    declared."""
+    return _signatures(kernels._library())
 
 
 def _hgf_filter_cuda(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,

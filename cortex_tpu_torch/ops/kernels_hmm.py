@@ -27,6 +27,8 @@ CUDA kernel keep them).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -34,8 +36,8 @@ import torch
 from ..utils import spans
 from ..utils.tree import as_tensors
 from .chains import _full_float32_matmul
-from .kernels import (COSTS, LAUNCHES, NAMESPACE, OPS, SMEM_LIMIT_BYTES, _library, op,
-                      row_pitch)
+from . import kernels
+from .kernels import COSTS, LAUNCHES, NAMESPACE, OPS, SMEM_LIMIT_BYTES, op, row_pitch
 
 __all__ = [
     "HMMFusedPosterior",
@@ -172,6 +174,24 @@ def hmm_forward_backward_counts_fused_reference(
         N = ((a_prev @ A) * w).sum(-1) + FLOOR  # (R, T-1)
         S = torch.einsum("rtj,rtk->rjk", a_prev / N[..., None], w)
     return HMMFusedCounts(gamma, A * S, logz)
+
+
+@functools.cache
+def _signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with K2's and K3's C signatures declared: lik, A, At, pi,
+    gamma, [xi_sum,] log_evidence, R, T, K, group, alpha_in_smem, stream."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hmm_forward_backward_f32.argtypes = [ptr] * 6 + [i64, i32, i32, i32, i32, ptr]
+    lib.hmm_forward_backward_f32.restype = i32
+    lib.hmm_forward_backward_counts_f32.argtypes = [ptr] * 7 + [i64, i32, i32, i32, i32, ptr]
+    lib.hmm_forward_backward_counts_f32.restype = i32
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    """The kernels' one library (:func:`kernels._library`), K2's and K3's
+    signatures declared."""
+    return _signatures(kernels._library())
 
 
 def _launch(lik, A, pi, counts: bool):

@@ -4,9 +4,8 @@ passes, beside their plain PyTorch versions.
 :func:`cortex_tpu_torch.parallel.lgssm_smooth_time_sharded` smooths this
 rank's block of a chain whose time axis is split over ranks; the ranks
 exchange one filter 5-tuple ``(A, b, C, eta, J)`` and one smoother 3-tuple
-``(E, g, L)`` per lane (Särkkä and García-Fernández 2020).  On a float32
-block on the card, the block's own work is :class:`LocalSweep`'s three
-passes, ``csrc/lgssm_time_sharded.cu``, each reading the block once:
+``(E, g, L)`` per lane (Särkkä and García-Fernández 2020).  The block's own
+work is :class:`LocalSweep`'s three passes, each reading the block once:
 
 1. :meth:`LocalSweep.filter_total`: every step's filter element built from
    ``y`` on the fly and folded in time order; the block's 5-tuple per lane.
@@ -27,23 +26,27 @@ time_sharded.py``).  The elements and combines are those of
 combine's divisions by its denominator taken as one correctly rounded
 reciprocal times the numerators.
 
-On a CUDA tensor each pass launches its kernel (built at first use; a failed
-build or launch raises), inside a ``launch.lgssm_time_sharded`` span, and
-counts it in ``kernels.LAUNCHES["lgssm_time_sharded"]``; on a CPU tensor it
-runs the plain version, the same segments and arithmetic as a loop over the
-steps of a segment, vectorised over lanes and segments, in the block's dtype.
+On a float32 block on the card each pass launches its kernel of
+``csrc/lgssm_time_sharded.cu`` (built at first use; a failed build or launch
+raises), inside a ``launch.lgssm_time_sharded`` span, and counts it in
+``kernels.LAUNCHES["lgssm_time_sharded"]``.  Any other block (every block on
+the host, a float64 one on the card) runs the plain version: the same
+segments and arithmetic as a loop over the steps of a segment, vectorised
+over lanes and segments, in the block's dtype.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..utils import spans
 from .chains import _FilterElem, _SmootherElem, _smoother_combine
-from .kernels import LAUNCHES, _library
+from . import kernels
+from .kernels import LAUNCHES
 
 __all__ = ["CHUNK", "LocalSweep", "SweepModel", "plan"]
 
@@ -96,7 +99,7 @@ class SweepModel(NamedTuple):
 
     @classmethod
     def of(cls, A: float, Q: float, H: float, R: float) -> "SweepModel":
-        """The numbers ``_smooth_time_sharded``'s element builds use."""
+        """The numbers of the model ``A, Q, H, R``'s elements."""
         S = H * Q * H + R
         K = Q * H / S
         return cls(a=(1.0 - K * H) * A, c=(1.0 - K * H) * Q, j=A * H * H * A / S, k=K,
@@ -130,9 +133,32 @@ def _where(mask, new, old):
     return type(old)(*(torch.where(mask, n, o) for n, o in zip(new, old)))
 
 
+@functools.cache
+def _signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the passes' C signatures declared: pointers, then lanes, T,
+    segments, segment length, the first / last flags, the model's numbers (a
+    host pointer), stream."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    plan = [i64, i32, i32, i32]
+    lib.lgssm_ts_filter_total_f32.argtypes = [ptr] * 5 + plan + [i32, ptr, ptr]
+    lib.lgssm_ts_filter_total_f32.restype = i32
+    lib.lgssm_ts_filter_fillin_f32.argtypes = [ptr] * 10 + plan + [i32, i32, ptr, ptr]
+    lib.lgssm_ts_filter_fillin_f32.restype = i32
+    lib.lgssm_ts_smoother_fillin_f32.argtypes = [ptr] * 6 + plan + [i32, ptr, ptr]
+    lib.lgssm_ts_smoother_fillin_f32.restype = i32
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    """The kernels' one library (:func:`kernels._library`), the passes'
+    signatures declared."""
+    return _signatures(kernels._library())
+
+
 class LocalSweep:
     """The three passes over one rank's block ``y``, ``(lanes, T)``,
-    contiguous, float32 on the card (float32 or float64 on the CPU).
+    contiguous, on the host or the card: the kernels on a float32 block on
+    the card, the plain versions on any other, in its dtype.
 
     ``first``: the block holds the chain's first step (the prior's element,
     ``prior = (m0, P0)``, each ``(lanes,)`` in ``y``'s dtype, or the first
@@ -147,8 +173,6 @@ class LocalSweep:
                  prior: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         if y.dim() != 2 or 0 in y.shape:
             raise ValueError(f"y must be a non-empty (lanes, T) block, got {tuple(y.shape)}")
-        if y.device.type == "cuda" and y.dtype != torch.float32:
-            raise TypeError(f"the kernels take float32, got {y.dtype}")
         if y.device.type not in ("cpu", "cuda"):
             raise ValueError(f"the local sweep runs on cpu or cuda, not {y.device}")
         if not y.is_contiguous():
@@ -160,6 +184,7 @@ class LocalSweep:
         if prior is not None and not first:
             raise ValueError("only the block with the chain's first step takes the prior")
         self.y, self.first, self.last = y, first, last
+        self.by_kernels = y.device.type == "cuda" and y.dtype == torch.float32
         self.model = SweepModel.of(float(A), float(Q), float(H), float(R))
         self._model_f32 = (ctypes.c_float * len(self.model))(*self.model)  # the kernels' copy
         self.prior = None if prior is None else self._lanes(*prior)
@@ -173,7 +198,7 @@ class LocalSweep:
     def filter_total(self) -> torch.Tensor:
         """Pass 1: the block's filter 5-tuple per lane, ``(5, lanes)``
         (rows A, b, C, eta, J)."""
-        if self.y.device.type == "cpu":
+        if not self.by_kernels:
             return self._filter_total_plain()
         total = self.y.new_empty((5, self.y.shape[0]))
         self._launch("filter_total", (self.y, total, self.seg_filter, *self._prior()),
@@ -186,7 +211,7 @@ class LocalSweep:
         step), the filtered moments into ``mean`` and ``variance``; returns
         the block's smoother 3-tuple per lane, ``(3, lanes)`` (rows E, g, L)."""
         prefix = self._lanes(prefix_b, prefix_C)
-        if self.y.device.type == "cpu":
+        if not self.by_kernels:
             return self._filter_fillin_plain(*prefix)
         total = self.y.new_empty((3, self.y.shape[0]))
         self._launch("filter_fillin", (self.y, self.mean, self.variance, total,
@@ -200,7 +225,7 @@ class LocalSweep:
         chain's last step), the marginals, over the filtered moments in
         place; returns ``(mean, variance)``."""
         suffix = self._lanes(E, g, L)
-        if self.y.device.type == "cpu":
+        if not self.by_kernels:
             self._smoother_fillin_plain(*suffix)
         else:
             self._launch("smoother_fillin", (self.mean, self.variance, self.seg_smoother,

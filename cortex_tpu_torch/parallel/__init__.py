@@ -6,7 +6,6 @@ from ..utils import spans as _spans
 # The subpackage's imports: a set-up span of the process.
 with _spans.setup_span("setup.import"):
     from .mesh import (
-        CollectiveStats,
         Mesh,
         NamedSharding,
         P,
@@ -29,7 +28,6 @@ __all__ = [
     "init_distributed",
     "make_mesh",
     "Mesh",
-    "CollectiveStats",
     "replica_sharding",
     "shard_replicas",
     "shard",

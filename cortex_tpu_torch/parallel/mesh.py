@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 from datetime import timedelta
 
@@ -38,7 +37,6 @@ from ..utils import spans
 from ..utils.tree import as_float32_tensor
 
 __all__ = [
-    "CollectiveStats",
     "Mesh",
     "NamedSharding",
     "P",
@@ -98,22 +96,8 @@ def init_distributed(
     return world_size
 
 
-# Every mesh's exchanges in this process, as each mesh's CollectiveStats counts
-# its own: calls, and bytes sent by this rank.
+# Every mesh's exchanges in this process: calls, and bytes sent by this rank.
 _COLLECTIVE = spans.counter_group("collective", ("calls", "bytes"))
-
-
-@dataclasses.dataclass
-class CollectiveStats:
-    """What a mesh's collectives did: calls, bytes sent by this rank, and the
-    host's seconds inside them.  Staged (gloo on the card) exchanges wait for
-    the card's queued work before the clock starts, so their seconds are the
-    exchange alone, copies included; an NCCL call returns once enqueued, so its
-    seconds are the enqueue and its device time is the profiler's to read."""
-
-    calls: int = 0
-    bytes: int = 0
-    seconds: float = 0.0
 
 
 @dataclasses.dataclass(eq=False)
@@ -131,7 +115,6 @@ class Mesh:
     coords: Dict[str, int]
     groups: Dict[str, object]
     device: torch.device
-    stats: CollectiveStats = dataclasses.field(default_factory=CollectiveStats)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -278,9 +261,9 @@ def gather(block: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
 
 
 class _Exchange:
-    """Times one exchange into ``mesh.stats`` and the ``collective`` counters,
-    inside the span ``name`` (``collective.<operation>``); on a staged axis,
-    moves tensors to the host and back, inside the span too."""
+    """Counts one exchange into the ``collective`` counters, inside the span
+    ``name`` (``collective.<operation>``); on a staged axis, moves tensors to
+    the host and back, inside the span too."""
 
     def __init__(self, mesh: Mesh, axis: str, nbytes: int, name: str):
         self.mesh, self.staged, self.nbytes = mesh, mesh.staged(axis), nbytes
@@ -294,16 +277,9 @@ class _Exchange:
 
     def __enter__(self):
         self.span.__enter__()
-        if self.staged:
-            torch.cuda.synchronize(self.mesh.device)
-        self.start = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        stats = self.mesh.stats
-        stats.calls += 1
-        stats.bytes += self.nbytes
-        stats.seconds += time.perf_counter() - self.start
         _COLLECTIVE["calls"] += 1
         _COLLECTIVE["bytes"] += self.nbytes
         self.span.__exit__(*exc)

@@ -3,23 +3,26 @@
 The counterpart of ``cortex_tpu/parallel/time_sharded.py``.  A long chain's
 time axis is split into contiguous blocks, one per rank along ``time_axis``,
 and the chain's message passing is reformulated as an associative scan
-(:mod:`cortex_tpu_torch.ops.chains`), distributed in three steps:
+(the elements and combines of :mod:`cortex_tpu_torch.ops.chains`),
+distributed in three steps:
 
-1. each rank runs a **local** scan over its time block,
-2. the per-block combined elements (one small tuple per rank) are exchanged
-   by a single ``all_gather`` over the ``time`` group — the only traffic
-   between ranks, whatever the chain's length,
-3. each rank folds the exclusive prefix of the earlier blocks' elements into
-   its local scan.
+1. each rank folds its time block's elements into one element,
+2. the per-block elements (one small tuple per rank) are exchanged by a
+   single ``all_gather`` over the ``time`` group — the only traffic between
+   ranks, whatever the chain's length,
+3. each rank fills its block in from the exclusive prefix of the earlier
+   blocks' elements.
 
-The same runs in reverse for the smoother pass.  On a float32 block on the
-card the rank's own work is three CUDA passes that each read the block once
-(:class:`~cortex_tpu_torch.ops.kernels_time_sharded.LocalSweep`: a sequential
-fold and fill-in per lane, cut into time segments); any other block runs the
-log-depth scan.  A call is one span,
-``parallel.time_sharded`` (``parallel.mv_time_sharded`` for the vector
-chain), the root of its call record (:mod:`cortex_tpu_torch.utils.spans`);
-its two exchanges are ``collective.all_gather`` spans inside it.
+The same runs in reverse for the smoother pass.  For the scalar chain a
+rank's own work is :class:`~cortex_tpu_torch.ops.kernels_time_sharded.
+LocalSweep`'s three passes, each reading the block once (a sequential fold
+and fill-in per lane, cut into time segments): CUDA kernels on a float32
+block on the card, their plain PyTorch version on any other block.  The
+vector chain's is a sequential fold and fill-in in the lane-major layout.  A
+call is one span, ``parallel.time_sharded`` (``parallel.mv_time_sharded``
+for the vector chain), the root of its call record
+(:mod:`cortex_tpu_torch.utils.spans`); its two exchanges are
+``collective.all_gather`` spans inside it.
 
 Explicit SPMD: every rank of the axis calls the function on its own block
 (see :func:`cortex_tpu_torch.parallel.shard`) and gets the marginals of its
@@ -35,7 +38,6 @@ import torch
 
 from ..ops.chains import (
     ChainMarginals,
-    _associative_scan,
     _FilterElem,
     _SmootherElem,
     _filter_combine,
@@ -115,32 +117,15 @@ def lgssm_smooth_time_sharded(
     exchanges one filter 5-tuple and one smoother 3-tuple per rank.
     """
     with spans.span("parallel.time_sharded"):
-        return _smooth_time_sharded(y, A, Q, H, R, mesh, time_axis, prior)
+        return _sweep(y, A, Q, H, R, prior, mesh.axis_index(time_axis), mesh.shape[time_axis],
+                      lambda elem: _gather_elems(elem, mesh, time_axis))
 
 
-def _smooth_time_sharded(y, A, Q, H, R, mesh: Mesh, time_axis: str, prior) -> ChainMarginals:
-    """This rank's sweep: the CUDA passes on a float32 block on the card, the
-    log-depth scan on any other block."""
-    ndev = mesh.shape[time_axis]
-    my = mesh.axis_index(time_axis)
-
-    def gather(elem):
-        return _gather_elems(elem, mesh, time_axis)
-
-    sweep = _sweep_by_passes if _takes_passes(y) else _sweep_by_scan
-    return sweep(y, A, Q, H, R, prior, my, ndev, gather)
-
-
-def _takes_passes(y: torch.Tensor) -> bool:
-    """Whether the block ``y`` takes the CUDA passes: float32 on the card."""
-    return y.device.type == "cuda" and y.dtype == torch.float32 and y.numel() > 0
-
-
-def _sweep_by_passes(y, A, Q, H, R, prior, my: int, ndev: int, gather) -> ChainMarginals:
-    """The block's sweep as :class:`~cortex_tpu_torch.ops.kernels_time_sharded.
-    LocalSweep`'s three passes, each reading the block once, around the same
-    two exchanges as :func:`_sweep_by_scan`; ``gather(elem)`` is every rank's
-    ``elem`` in axis order.  A strided block is copied first."""
+def _sweep(y, A, Q, H, R, prior, my: int, ndev: int, gather) -> ChainMarginals:
+    """Rank ``my`` of ``ndev``'s sweep of its block: :class:`~cortex_tpu_torch.
+    ops.kernels_time_sharded.LocalSweep`'s three passes, each reading the block
+    once, around two exchanges; ``gather(elem)`` is every rank's ``elem`` in
+    axis order.  A strided block is copied first."""
     shape = y.shape
     block = y.reshape(-1, shape[-1]).contiguous()
     lanes = block.shape[0]
@@ -161,69 +146,6 @@ def _sweep_by_passes(y, A, Q, H, R, prior, my: int, ndev: int, gather) -> ChainM
         sgathered, _smoother_combine, _SmootherElem(one, zero, zero), my)
     mean, variance = sweep.smoother_fillin(*suffix)
     return ChainMarginals(mean.view(shape), variance.view(shape))
-
-
-def _sweep_by_scan(y, A, Q, H, R, prior, my: int, ndev: int, gather) -> ChainMarginals:
-    """The block's sweep as local associative scans, folded with the earlier
-    and later blocks' elements from ``gather`` (every rank's element in axis
-    order)."""
-    yT = y.movedim(-1, 0)
-
-    def full(value):
-        return torch.full(yT.shape, value, dtype=y.dtype, device=y.device)
-
-    # -- generic filter elements for every local step ---------------------
-    S = H * Q * H + R
-    K = Q * H / S
-    A_e = full((1.0 - K * H) * A)
-    b_e = K * yT
-    C_e = full((1.0 - K * H) * Q)
-    eta_e = A * H * yT / S
-    J_e = full(A * H * H * A / S)
-
-    # -- the first global element is special (prior / first obs) ----------
-    if my == 0:
-        if prior is not None:
-            m0 = to_tensor(prior[0], dtype=y.dtype, device=y.device).expand(yT.shape[1:])
-            P0 = to_tensor(prior[1], dtype=y.dtype, device=y.device).expand(yT.shape[1:])
-            S1 = H * P0 * H + R
-            K1 = P0 * H / S1
-            b_e[0] = m0 + K1 * (yT[0] - H * m0)
-            C_e[0] = P0 - K1 * H * P0
-        else:
-            b_e[0] = yT[0] / H
-            C_e[0] = R / (H * H)
-        A_e[0] = eta_e[0] = J_e[0] = 0.0
-    elems = _FilterElem(A_e, b_e, C_e, eta_e, J_e)
-
-    # -- local scan + cross-rank prefix fold ------------------------------
-    local = _associative_scan(_filter_combine, elems)
-    gathered = gather(_FilterElem(*(f[-1] for f in local)))
-    one, zero = torch.ones_like(yT[0]), torch.zeros_like(yT[0])
-    prefix = _exclusive_prefix(
-        gathered, _filter_combine, _FilterElem(one, zero, zero, zero, zero), my)
-    final = _filter_combine(prefix, local)
-    fm, fP = final.b, final.C  # filtered means/vars for the local block
-
-    # -- smoother elements ------------------------------------------------
-    Pp = A * A * fP + Q
-    E = fP * A / Pp
-    g = fm - E * A * fm
-    L = fP - E * A * fP
-    # The *global* last element is terminal: (0, fm_T, fP_T).
-    if my == ndev - 1:
-        E[-1] = 0.0
-        g[-1] = fm[-1]
-        L[-1] = fP[-1]
-    selems = _SmootherElem(E, g, L)
-
-    slocal = _associative_scan(_smoother_combine, selems, reverse=True)
-    sgathered = gather(_SmootherElem(*(f[0] for f in slocal)))
-    suffix = _exclusive_suffix(
-        sgathered, _smoother_combine, _SmootherElem(one, zero, zero), my)
-    sfinal = _smoother_combine(suffix, slocal)
-    return ChainMarginals(
-        sfinal.g.movedim(0, -1).contiguous(), sfinal.L.movedim(0, -1).contiguous())
 
 
 def mv_lgssm_smooth_time_sharded(

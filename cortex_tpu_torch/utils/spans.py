@@ -37,7 +37,7 @@ launches, ``ops.kernels.LAUNCHES``), ``copy.h2d`` (``calls`` and ``bytes`` of
 the port's uploads to the card, :func:`h2d`), ``compiled.graph`` (the
 executor's ``captures``, ``replays`` and ``eager`` sweeps on the card),
 ``collective`` (``calls`` and ``bytes`` sent by this rank, of every mesh's
-exchanges, the numbers each mesh's ``CollectiveStats`` counts) and ``spans``
+exchanges) and ``spans``
 (``dropped``).
 """
 

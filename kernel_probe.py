@@ -24,9 +24,10 @@ of its small-K paths (the pair path, a lane group a replica), forced through
 passes (``ops/kernels_time_sharded.py``, a hand-written kernel with no Pallas
 counterpart) on one rank's block of the ``lgssm.timeshard-4chip`` cell,
 10,000 x 16,384 (the whole chain on one rank: prior-free first step, terminal
-last step), each pass alone, and the ATen scan route they replace on the same
-block; it reports each pass's register report and how far the passes'
-marginals lie from the scan route's.  A tree without the passes is skipped.
+last step), each pass alone, and their plain version (``LocalSweep``'s plain
+passes, in float32) on the same block; it reports each pass's register report
+and how far the passes' marginals lie from the plain version's.  A tree
+without the passes is skipped.
 
 ``breakdown`` builds variants of OTHER's kernel sources with one part cut
 out each, written as scratch sources under ``build/probe/`` (git-ignored) and
@@ -332,7 +333,8 @@ def hmm_rows(torch, smoke, packages: dict, flush, shapes=HMM_SHAPES, setups=None
 
 def ts_rows(torch, smoke, packages: dict, flush) -> None:
     """The time-sharded passes of each package that has them at TS_SHAPE,
-    each alone, then all three, and the ATen scan route on the same block."""
+    each alone, then all three, and their plain version in float32 on the
+    same block."""
     R, T = TS_SHAPE
     y = torch.from_numpy(
         np.random.default_rng(R).normal(size=(R, T)).cumsum(-1).astype(np.float32)).cuda()
@@ -343,7 +345,6 @@ def ts_rows(torch, smoke, packages: dict, flush) -> None:
             kts = importlib.import_module(f"{pkg.__name__}.ops.kernels_time_sharded")
         except ImportError:
             continue
-        ts = importlib.import_module(f"{pkg.__name__}.parallel.time_sharded")
 
         def passes(kts=kts):
             sweep = kts.LocalSweep(y, *params, first=True, last=True)
@@ -351,17 +352,21 @@ def ts_rows(torch, smoke, packages: dict, flush) -> None:
             sweep.filter_fillin(zero, zero)
             return sweep.smoother_fillin(one, zero, zero)
 
-        def scan(ts=ts):
-            return ts._sweep_by_scan(y, *params, None, 0, 1, lambda elem: [elem])
+        def plain(kts=kts):
+            sweep = kts.LocalSweep(y, *params, first=True, last=True)
+            sweep._filter_total_plain()
+            sweep._filter_fillin_plain(zero, zero)
+            sweep._smoother_fillin_plain(one, zero, zero)
+            return sweep.mean, sweep.variance
 
-        got, want = passes(), scan()
+        got, want = passes(), plain()
         torch.cuda.synchronize()
         diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
         segments, length = kts.plan(R, T)
         log = pkg._build.library_path().with_name(pkg._build.library_path().name + ".log")
         report = log.read_text().split("== lgssm_time_sharded.cu")[-1].split("== ")[0]
         emit(kernel="lgssm_time_sharded", tree=label, R=R, T=T, segments=segments,
-             segment_length=length, max_abs_diff_vs_scan=diff,
+             segment_length=length, max_abs_diff_vs_plain=diff,
              ptxas=[line for line in report.splitlines() if "registers" in line])
         total_bytes = 0
         for name, (kernel, nbytes) in TS_PASSES.items():
@@ -373,8 +378,8 @@ def ts_rows(torch, smoke, packages: dict, flush) -> None:
         emit(kernel="lgssm_time_sharded all passes", tree=label, R=R, T=T,
              device_ms=smoke.device_ms(torch, passes, flush, names),
              bound_ms=total_bytes / smoke.HBM_BYTES_PER_S * 1e3,
-             plain_device_ms=smoke.device_ms(torch, scan, flush, runs=3),
-             plain="parallel/time_sharded.py::_sweep_by_scan, one rank")
+             plain_device_ms=smoke.device_ms(torch, plain, flush, runs=3),
+             plain="ops/kernels_time_sharded.py::LocalSweep's plain passes in float32")
 
 
 def hmm_path_rows(torch, smoke, pkg, flush) -> None:

@@ -15,8 +15,8 @@ sums the pairwise counts inside its backward pass: gamma atol 1e-5 and
 log-evidence rtol 1e-5 (the bars of tests/test_pallas_kernels.py), xi_sum
 rtol = atol = 1e-4.  The HGF kernel rounds each operation as its plain
 version does: 1e-5 (tests/test_hgf.py's bar), bf16 tracks within one ulp.
-The time-sharded smoother's CUDA passes and its log-depth scan, both on the
-card, differ by float32 rounding: 1e-4 (the K1 bar).
+The time-sharded smoother's CUDA passes and their plain version in float64,
+both on the card, differ by float32 rounding: 1e-4 (the K1 bar).
 The generic compiled path runs plain torch operations on the card; the BP
 chain and the mean-field VMP graph are held against the same calls on the
 CPU at 1e-5 and rtol 1e-4 (atol 1e-6).  So do the Gaussian mixtures and the
@@ -650,7 +650,7 @@ def test_parallel_worlds_on_card_match_the_single_device_path(cuda, tmp_path, ba
                 "time-sharded, prior"} <= {c["path"] for c in r["checks"]}
 
 
-# (lanes, T, ranks) of the time-sharded passes against the scan route: lanes
+# (lanes, T, ranks) of the time-sharded passes against their plain version: lanes
 # that fill no whole block of threads, blocks of 125 steps (no multiple of 4:
 # the scalar loads) and of 80, 32 and 32, middle ranks (3 and 4 ranks), and a
 # block cut by the plan itself (8 segments of 256 steps).
@@ -662,16 +662,16 @@ TS_SHAPES = [(37, 160, 2), (300, 250, 2), (130, 96, 3), (1, 128, 4), (3_000, 4_0
 @pytest.mark.parametrize("params", [(1.0, 1.0, 1.0, 1.0), (0.9, 0.3, 1.0, 1.5)], ids=str)
 @pytest.mark.parametrize("min_segment", [1, 300])
 @pytest.mark.parametrize("shape", TS_SHAPES, ids=str)
-def test_time_sharded_passes_match_the_scan_route_on_card(cuda, shape, min_segment, params,
-                                                          prior, monkeypatch):
+def test_time_sharded_passes_match_the_float64_plain_passes_on_card(
+        cuda, shape, min_segment, params, prior, monkeypatch):
     """Every rank of a world of threads on the card (chip_smoke.time_sharded_ranks)
-    through the three CUDA passes and through the log-depth scan, each rank
-    folding the others' gathered elements: the same marginals within float32
-    rounding (the K1 bar, 1e-4), both within 1e-3 of the float64 smoother.
+    through the three CUDA passes (a float32 block) and through their plain
+    version in float64 (the same block in float64), each rank folding the
+    others' gathered elements: the same marginals within float32 rounding
+    (the K1 bar, 1e-4), the kernels within 1e-3 of the float64 smoother.
     ``MIN_SEGMENT`` 1 cuts the short blocks into up to 32 segments, empty
     ones included."""
     from cortex_tpu_torch.ops import kernels_time_sharded
-    from cortex_tpu_torch.parallel import time_sharded
 
     monkeypatch.setattr(kernels_time_sharded, "MIN_SEGMENT", min_segment)
     smoke = _chip_smoke()
@@ -682,13 +682,18 @@ def test_time_sharded_passes_match_the_scan_route_on_card(cuda, shape, min_segme
         rng = np.random.default_rng(lanes)
         p = (torch.from_numpy(rng.normal(size=lanes).astype(np.float32)).to(cuda),
              torch.from_numpy((rng.random(lanes) + 0.5).astype(np.float32)).to(cuda))
-    got = smoke.time_sharded_ranks(torch, time_sharded._sweep_by_passes, y, ranks, params, p)
-    want = smoke.time_sharded_ranks(torch, time_sharded._sweep_by_scan, y, ranks, params, p)
+    launches = kernels.LAUNCHES["lgssm_time_sharded"]
+    got = smoke.time_sharded_ranks(torch, y, ranks, params, p)
+    assert kernels.LAUNCHES["lgssm_time_sharded"] == launches + 3 * ranks
+    want = smoke.time_sharded_ranks(torch, y.double(), ranks, params,
+                                    None if p is None else tuple(q.double() for q in p))
+    assert kernels.LAUNCHES["lgssm_time_sharded"] == launches + 3 * ranks
     torch.cuda.synchronize()
     exact = ops.lgssm_smooth_scan(y.cpu().double(), *params,
                                   prior=None if p is None else tuple(q.cpu().double() for q in p))
     for g, w, x in zip(got, want, exact):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert w.dtype == torch.float64 and w.is_cuda
+        torch.testing.assert_close(g.double(), w, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(g.cpu().double(), x, rtol=1e-3, atol=1e-3)
 
 
@@ -703,8 +708,7 @@ def test_a_time_sharded_call_on_card_launches_three_passes(cuda):
     y = _walk(9, (500, 1024), cuda)
 
     def call(block):
-        return time_sharded._sweep_by_passes(block, 0.9, 0.3, 1.0, 1.5, None, 0, 1,
-                                             lambda elem: [elem])
+        return time_sharded._sweep(block, 0.9, 0.3, 1.0, 1.5, None, 0, 1, lambda elem: [elem])
 
     before = kernels.LAUNCHES["lgssm_time_sharded"]
     want = call(y)

@@ -31,6 +31,7 @@ import torch
 import jax
 import jax.numpy as jnp
 from cortex_tpu_torch import parallel
+from cortex_tpu_torch.utils import spans
 
 import cortex_tpu.models as jmodels
 import cortex_tpu.parallel as jparallel
@@ -175,7 +176,8 @@ def test_make_mesh_needs_a_process_group():
 
 def test_a_world_of_one_without_a_launcher():
     """init_distributed with no arguments and no torchrun makes a world of one;
-    its mesh's collectives give back what they got."""
+    its mesh's collectives give back what they got, counted in the
+    ``collective`` counters."""
     if torch.distributed.is_initialized():
         pytest.skip("this process already belongs to a world")
     try:
@@ -184,9 +186,12 @@ def test_a_world_of_one_without_a_launcher():
         mesh = parallel.make_mesh([("replica", 1), ("time", -1)], device="cpu")
         assert mesh.shape == {"replica": 1, "time": 1} and not mesh.staged("time")
         x = torch.arange(6.0).reshape(2, 3)
+        before = spans.counts()
         assert torch.equal(parallel.all_gather(x, mesh, "time"), x[None])
         assert torch.equal(parallel.global_sum(x, mesh), x.sum(0))
-        assert mesh.stats.calls == 2 and mesh.stats.bytes == 4 * (6 + 3)
+        after = spans.counts()
+        assert after["collective.calls"] - before["collective.calls"] == 2
+        assert after["collective.bytes"] - before["collective.bytes"] == 4 * (6 + 3)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -276,8 +281,8 @@ def test_each_time_sharded_call_sends_two_elements_and_nothing_more(world):
         assert info["collective bytes"]["time_sharded_float64"] == 64 * R
 
 
-def test_time_sharded_blocks_on_the_host_take_the_scan(world):
-    """float32 and float64 blocks on the CPU take the log-depth scan: no
+def test_time_sharded_blocks_on_the_host_run_the_plain_passes(world):
+    """float32 and float64 blocks on the CPU run the passes' plain version: no
     time-sharded pass is launched, and the float64 block gives the float64
     single-device smoother's marginals."""
     from cortex_tpu_torch.ops import lgssm_smooth_scan as port_scan
@@ -334,14 +339,14 @@ def test_a_time_sharded_call_is_one_record_of_its_layers(world):
         assert on["counts"] == record["counts"]
 
 
-def test_spans_are_off_outside_a_session_and_collective_stats_count_as_ever(world):
+def test_spans_are_off_outside_a_session_and_collective_counters_count_as_ever(world):
     inputs, infos, _ = world
     R = inputs["long_y"].shape[0]
     for info in infos:
         off, on = info["spans"]["off"], info["spans"]["on"]
         assert off["records"] == 0
-        assert off["stats"] == on["stats"] == [2, 32 * R]
-        assert off["counts"] == {"collective.calls": 2, "collective.bytes": 32 * R}
+        assert off["counts"] == on["counts"] == {"collective.calls": 2,
+                                                 "collective.bytes": 32 * R}
 
 
 def test_time_sharded_rejects_ragged_split(world):

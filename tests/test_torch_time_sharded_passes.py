@@ -4,14 +4,14 @@
 CPU block: the kernels' segments and arithmetic, vectorised over lanes and
 segments.  Each rank of a world of threads (``chip_smoke.time_sharded_ranks``,
 the elements exchanged through a shared board) runs
-``parallel/time_sharded.py``'s ``_sweep_by_passes`` on its block; the joined
-marginals are held to the single-device smoother in float64 (1e-10: the same
-algebra in another order), to the log-depth scan route in float32 (1e-4,
-the bar of tests/test_torch_cuda.py's K1 tests: float32 rounding over a
-walk's magnitude), and to the JAX package's time-sharded smoother on a mesh
-of as many of conftest's virtual CPU devices as the world has ranks, on the
-same inputs (1e-10 in float64, 1e-4 in float32).  ``MIN_SEGMENT`` is lowered
-to cut these short blocks into several segments, some of them empty.  The
+``parallel/time_sharded.py``'s ``_sweep`` on its block; the joined marginals
+are held to the single-device smoother in float64 (1e-10: the same algebra
+in another order; 1e-4 for a float32 block, the bar of
+tests/test_torch_cuda.py's K1 tests: float32 rounding over a walk's
+magnitude), and to the JAX package's time-sharded smoother on a mesh of as
+many of conftest's virtual CPU devices as the world has ranks, on the same
+inputs (1e-10 in float64, 1e-4 in float32).  ``MIN_SEGMENT`` is lowered to
+cut these short blocks into several segments, some of them empty.  The
 kernels themselves run on the card only (tests/test_torch_cuda.py).
 """
 
@@ -80,8 +80,7 @@ def test_passes_give_the_float64_smoothers_marginals(shape, min_segment, prior, 
     params = (0.9, 0.3, 1.0, 1.5)
     y = _walk(sum(shape), lanes, T, torch.float64)
     p = _prior(T, lanes, torch.float64) if prior else None
-    mean, var = SMOKE.time_sharded_ranks(torch, time_sharded._sweep_by_passes, y, ranks,
-                                         params, p)
+    mean, var = SMOKE.time_sharded_ranks(torch, y, ranks, params, p)
     want = chains.lgssm_smooth_scan(y, *params, prior=p)
     torch.testing.assert_close(mean, want.mean, rtol=1e-10, atol=1e-10)
     torch.testing.assert_close(var, want.variance, rtol=1e-10, atol=1e-10)
@@ -89,15 +88,16 @@ def test_passes_give_the_float64_smoothers_marginals(shape, min_segment, prior, 
 
 @pytest.mark.parametrize("params", PARAMS, ids=str)
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
-def test_float32_passes_match_the_scan_route(shape, params, monkeypatch):
+def test_float32_passes_give_the_float64_smoothers_marginals(shape, params, monkeypatch):
     monkeypatch.setattr(kts, "MIN_SEGMENT", 4)
     lanes, T, ranks = shape
-    y = _walk(T, lanes, T, torch.float32)
-    p = _prior(lanes, lanes, torch.float32)
-    got = SMOKE.time_sharded_ranks(torch, time_sharded._sweep_by_passes, y, ranks, params, p)
-    want = SMOKE.time_sharded_ranks(torch, time_sharded._sweep_by_scan, y, ranks, params, p)
+    y = _walk(T, lanes, T, torch.float64)
+    p = _prior(lanes, lanes, torch.float64)
+    got = SMOKE.time_sharded_ranks(torch, y.float(), ranks, params, tuple(q.float() for q in p))
+    want = chains.lgssm_smooth_scan(y, *params, prior=p)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g.double(), w, rtol=1e-4, atol=1e-4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,7 +130,7 @@ def test_passes_match_the_jax_time_sharded_smoother(shape, min_segment, params, 
     lanes, T, ranks = shape
     y = _walk(T + lanes, lanes, T, dtype)
     p = _prior(T, lanes, dtype) if prior else None
-    got = SMOKE.time_sharded_ranks(torch, time_sharded._sweep_by_passes, y, ranks, params, p)
+    got = SMOKE.time_sharded_ranks(torch, y, ranks, params, p)
     want = _jax_marginals(shape, params, prior, dtype)
     tol = 1e-10 if dtype == torch.float64 else 1e-4
     for g, w in zip(got, want):
@@ -141,8 +141,7 @@ def test_passes_match_the_jax_time_sharded_smoother(shape, min_segment, params, 
 def test_a_block_with_batch_axes_keeps_its_shape_and_a_scalar_prior():
     """A ``(2, 3, T)`` block is six lanes; a number prior reaches every lane."""
     y = _walk(5, 6, 48, torch.float64)
-    mean, var = SMOKE.time_sharded_ranks(torch, time_sharded._sweep_by_passes,
-                                         y.view(2, 3, 48), 2, PARAMS[1], (0.5, 2.0))
+    mean, var = SMOKE.time_sharded_ranks(torch, y.view(2, 3, 48), 2, PARAMS[1], (0.5, 2.0))
     want = chains.lgssm_smooth_scan(y, *PARAMS[1], prior=(0.5, 2.0))
     assert mean.shape == (2, 3, 48)
     torch.testing.assert_close(mean.reshape(6, 48), want.mean, rtol=1e-10, atol=1e-10)
@@ -181,7 +180,8 @@ def test_local_sweep_rejects_what_the_kernels_do_not_take():
 
 
 class _Mesh:
-    """The parts of a mesh that ``_smooth_time_sharded`` reads, for one rank."""
+    """The parts of a mesh that ``lgssm_smooth_time_sharded`` reads, for one
+    rank."""
 
     def __init__(self, ranks, rank):
         self.shape, self.rank = {"time": ranks}, rank
@@ -191,18 +191,21 @@ class _Mesh:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_blocks_on_the_host_take_the_scan_and_launch_nothing(dtype, monkeypatch):
-    """The route is read from the block: CPU blocks, float32 or float64, run
-    the log-depth scan; no pass runs and no launch is counted."""
-    used = []
-    monkeypatch.setattr(time_sharded, "_sweep_by_passes",
-                        lambda *args: used.append(args) or pytest.fail("took the passes"))
+def test_blocks_on_the_host_run_the_plain_passes_and_launch_nothing(dtype, monkeypatch):
+    """What runs is read from the block: CPU blocks, float32 or float64, run
+    the passes' plain versions; no kernel is launched and no launch is
+    counted."""
+    plain = []
+    monkeypatch.setattr(kts.LocalSweep, "_launch",
+                        lambda *args: pytest.fail("launched a kernel"))
+    original = kts.LocalSweep._filter_total_plain
+    monkeypatch.setattr(kts.LocalSweep, "_filter_total_plain",
+                        lambda sweep: plain.append(sweep.y.dtype) or original(sweep))
     monkeypatch.setattr(time_sharded, "_gather_elems", lambda elem, mesh, axis: [elem])
     y = _walk(2, 3, 40, dtype)
     before = dict(kernels.LAUNCHES)
     got = time_sharded.lgssm_smooth_time_sharded(y, *PARAMS[1], mesh=_Mesh(1, 0))
-    assert not used and kernels.LAUNCHES == before
-    assert not time_sharded._takes_passes(y)
+    assert plain == [dtype] and kernels.LAUNCHES == before
     want = chains.lgssm_smooth_scan(y, *PARAMS[1])
     torch.testing.assert_close(got.mean, want.mean, rtol=1e-4, atol=1e-4)
     assert got.mean.dtype == dtype
