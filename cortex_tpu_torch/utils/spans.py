@@ -36,6 +36,7 @@ Counters are plain integers in one registry (:func:`counter_group`,
 launches, ``ops.kernels.LAUNCHES``), ``copy.h2d`` (``calls`` and ``bytes`` of
 the port's uploads to the card, :func:`h2d`), ``compiled.graph`` (the
 executor's ``captures``, ``replays`` and ``eager`` sweeps on the card),
+``model.hmm.graph`` (the same of ``HMM.fit_vmp``'s fits on the card),
 ``collective`` (``calls`` and ``bytes`` sent by this rank, of every mesh's
 exchanges) and ``spans``
 (``dropped``).

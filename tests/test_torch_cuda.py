@@ -36,7 +36,7 @@ import pytest
 import torch
 
 from cortex_tpu_torch import models, ops, parallel
-from cortex_tpu_torch.models import HGF, HMM, LGSSM
+from cortex_tpu_torch.models import HGF, HMM, LGSSM, HMMVMPState
 from cortex_tpu_torch.ops import kernels, kernels_hgf, kernels_hmm
 from cortex_tpu_torch.parallel import StreamingSession, stream_filter
 
@@ -575,6 +575,145 @@ def test_a_profiled_replay_holds_the_replay_span(cuda, tmp_path):
     (record,) = spans.calls()
     assert record.counts.get("compiled.graph.replays") == 1
     assert "compiled" in record.layers and "rules" not in record.layers
+
+
+def _fit_counts():
+    from cortex_tpu_torch.models import hmm
+
+    return dict(hmm._GRAPH)
+
+
+def _fit_moved(before):
+    return {k: n - before[k] for k, n in _fit_counts().items()}
+
+
+def _fit_eagerly(call):
+    """``call()`` with the fit's capture off: the eager fit on the card."""
+    from cortex_tpu_torch.models import hmm
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(hmm, "_signature", lambda *args: None)
+        return call()
+
+
+def _fit_leaves(result):
+    from cortex_tpu_torch.utils import tree
+
+    return tree.tree_leaves(result)
+
+
+def _symbols(seed, shape, M, device):
+    rng = np.random.default_rng(seed)
+    obs = np.abs(rng.normal(size=shape).cumsum(-1)).astype(np.int64) % M
+    obs[rng.random(shape) < 0.05] = -1
+    return torch.from_numpy(obs).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fused pooled", "scan per replica", "scan init_state"])
+def test_fit_replays_match_the_eager_fit_and_stay_fresh(cuda, case):
+    """``HMM.fit_vmp`` at R = 256, T = 32, K = 4, M = 8 on three batches:
+    the first call runs eagerly, the second captures, the third replays;
+    each equals the eager fit on its batch bit for bit, and call k's results
+    are unchanged after call k + 1."""
+    model = HMM(4, torch.full((4,), -np.log(4.0))).to(cuda)
+    method, _, kind = case.partition(" ")
+    kwargs = dict(n_iterations=3, method=method, pooled=kind == "pooled")
+    if kind == "init_state":
+        kwargs["init_state"] = HMMVMPState(
+            1.0 + torch.rand((256, 4, 4), generator=torch.Generator().manual_seed(1)).to(cuda),
+            1.0 + torch.rand((256, 4, 8), generator=torch.Generator().manual_seed(2)).to(cuda))
+    batches = [_symbols(k, (256, 32), 8, cuda) for k in range(3)]
+    before = _fit_counts()
+    got, kept = [], []
+    for obs in batches:
+        got.append(model.fit_vmp(obs, 8, **kwargs))
+        kept.append([t.clone() for t in _fit_leaves(got[-1])])
+    assert _fit_moved(before) == {"captures": 1, "replays": 2, "eager": 1}
+    for obs, out, want in zip(batches, got, kept):
+        eager = _fit_eagerly(lambda: model.fit_vmp(obs, 8, **kwargs))
+        for g, k, e in zip(_fit_leaves(out), want, _fit_leaves(eager)):
+            assert torch.equal(g, k)  # fresh: untouched by the later calls
+            assert g.stride() == e.stride() and torch.equal(g, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edit", ["reassigned", "edited in place"])
+def test_a_replayed_fit_reads_the_models_log_pi(cuda, edit):
+    """A replay copies the model's ``log_pi`` in at each call: a buffer
+    reassigned or edited after the capture gives the eager fit under it."""
+    model = HMM(4, torch.full((4,), -np.log(4.0))).to(cuda)
+    obs = _symbols(4, (128, 24), 8, cuda)
+    for _ in range(2):  # eager, then the capture
+        model.fit_vmp(obs, 8, n_iterations=2, method="fused", pooled=True)
+    tilted = torch.log_softmax(torch.tensor([0.5, 0.0, -0.5, 1.0]), 0).to(cuda)
+    if edit == "reassigned":
+        model.log_pi = tilted
+    else:
+        model.log_pi.copy_(tilted)
+    before = _fit_counts()
+    got = model.fit_vmp(obs, 8, n_iterations=2, method="fused", pooled=True)
+    assert _fit_moved(before) == {"captures": 0, "replays": 1, "eager": 0}
+    want = _fit_eagerly(lambda: model.fit_vmp(obs, 8, n_iterations=2, method="fused",
+                                              pooled=True))
+    for g, w in zip(_fit_leaves(got), _fit_leaves(want)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_an_outer_capture_records_the_eager_fit_once(cuda):
+    """Inside an outer ``torch.cuda.graph`` the fit is recorded eagerly by
+    the outer capture; nothing is captured twice, and the outer graph's
+    replays give the eager fit's values."""
+    model = HMM(4, torch.full((4,), -np.log(4.0))).to(cuda)
+    obs = _symbols(0, (128, 24), 8, cuda)
+
+    def fit():
+        return model.fit_vmp(obs, 8, n_iterations=2, method="fused", pooled=True)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fit()  # warm-up: a first call, eager
+    torch.cuda.current_stream().wait_stream(side)
+    before = _fit_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fit()
+    assert _fit_moved(before) == {"captures": 0, "replays": 0, "eager": 0}
+    assert not model._fits.graphs
+    for k in (1, 2):
+        obs.copy_(_symbols(k, (128, 24), 8, cuda))
+        graph.replay()
+        for g, w in zip(_fit_leaves(out), _fit_leaves(_fit_eagerly(fit))):
+            assert torch.equal(g, w)
+    assert _fit_moved(before) == {"captures": 0, "replays": 0, "eager": 0}
+
+
+@pytest.mark.cuda
+def test_a_profiled_fit_replay_holds_the_replay_span(cuda, tmp_path):
+    import json
+
+    from cortex_tpu_torch.compile import tracing
+    from cortex_tpu_torch.utils import spans
+
+    model = HMM(4, torch.full((4,), -np.log(4.0))).to(cuda)
+    for k in range(2):  # eager, then the capture
+        model.fit_vmp(_symbols(k, (64, 16), 8, cuda), 8, n_iterations=2, method="fused",
+                      pooled=True)
+    spans.reset()
+    with tracing.profile_run(str(tmp_path)):
+        model.fit_vmp(_symbols(2, (64, 16), 8, cuda), 8, n_iterations=2, method="fused",
+                      pooled=True)
+    events = {e.get("name"): e for e in json.loads((tmp_path / "trace.json").read_text())[
+        "traceEvents"] if e.get("name") in ("model.hmm.fit_vmp", "model.hmm.replay")}
+    fit, replay = events["model.hmm.fit_vmp"], events["model.hmm.replay"]
+    assert fit["ts"] <= replay["ts"]
+    assert replay["ts"] + replay["dur"] <= fit["ts"] + fit["dur"]
+    (record,) = spans.calls()
+    assert record.counts.get("model.hmm.graph.replays") == 1
+    assert "model" in record.layers and "ops" not in record.layers
+    assert "launch" not in record.layers
 
 
 @pytest.mark.cuda

@@ -21,7 +21,9 @@ import torch
 import jax.numpy as jnp
 from cortex_tpu_torch import convert, ops
 from cortex_tpu_torch.models import HMM, HMMVMPState
+from cortex_tpu_torch.models import hmm as hmm_model
 from cortex_tpu_torch.ops import kernels
+from cortex_tpu_torch.utils import tree
 
 from cortex_tpu import models as jmodels
 from cortex_tpu.ops.hmm import hmm_forward_backward as jax_fb
@@ -284,3 +286,259 @@ def test_chip_smoke_hmm_main_path_rehearses_on_cpu():
     assert bound["bound_by"] == "bytes"
     assert bound["bound_ms"] == pytest.approx(4 * (2 * 4096 * 64 * 4 + 4096 + 20 + 4096 * 16)
                                               / 3.35e12 * 1e3)
+
+
+# -- the capture and replay of a repeated fit, the CPU standing in for the card --
+
+
+class _CpuFit(hmm_model._CapturedFit):
+    """A captured fit with the CPU standing in for the card: the capture
+    runs the fit from the buffers into the result it keeps, and a replay
+    runs it again from the buffers and writes into that same result, as a
+    graph does; ``fail`` makes the capture raise as a fit that reads the
+    card from the host does."""
+
+    fail = False
+
+    def __init__(self, fit, leaves):
+        if self.fail:
+            raise RuntimeError("operation not permitted when stream is capturing")
+        self.buffers = [x.clone() for x in leaves]
+        self.result = fit(*self.buffers)
+
+        def replay():
+            for old, new in zip(tree.tree_leaves(self.result),
+                                tree.tree_leaves(fit(*self.buffers))):
+                old.copy_(new)
+
+        self.graph = type("Graph", (), {"replay": staticmethod(replay)})()
+
+
+@pytest.fixture
+def cpu_card(monkeypatch):
+    """The fit's capture with the CPU standing in for the card: CPU tensors
+    engage it, :class:`_CpuFit` stands in for the graph, and a model keeps
+    two graphs."""
+
+    def signature(static, leaves):
+        if static is None:
+            return None
+        return static, tuple((tuple(x.shape), x.dtype) for x in leaves)
+
+    monkeypatch.setattr(hmm_model, "_signature", signature)
+    monkeypatch.setattr(hmm_model, "_CapturedFit", _CpuFit)
+    monkeypatch.setattr(_CpuFit, "fail", False)
+    monkeypatch.setattr(hmm_model, "GRAPH_CAP", 2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    counts = hmm_model._GRAPH
+
+    def moved(before):
+        return {k: counts[k] - before[k] for k in counts}
+
+    return lambda: dict(counts), moved
+
+
+def _eager_fit(call):
+    """``call()`` with the capture off: the eager fit."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(hmm_model, "_signature", lambda *a: None)
+        return call()
+
+
+def _same(got, want):
+    for g, w in zip(tree.tree_leaves(got), tree.tree_leaves(want), strict=True):
+        assert g.stride() == w.stride()
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+_FIT_SMALL = dict(R=6, T=8, M=3, n_iterations=3)
+
+
+def _small_obs(seed, R=_FIT_SMALL["R"], T=_FIT_SMALL["T"]):
+    return torch.from_numpy(_obs(seed, (R, T), _FIT_SMALL["M"], gaps=0.1))
+
+
+def _small_model():
+    return HMM(2, torch.from_numpy(_log_uniform(2)))
+
+
+_FIT_KINDS = {
+    "scan per replica": dict(),
+    "scan pooled": dict(pooled=True),
+    "fused pooled": dict(pooled=True, method="fused"),
+    "scan init_state": dict(init_state=HMMVMPState(
+        torch.full((_FIT_SMALL["R"], 2, 2), 1.5), torch.full((_FIT_SMALL["R"], 2, 3), 1.25))),
+}
+
+
+@pytest.mark.parametrize("kind", list(_FIT_KINDS))
+def test_fit_replays_match_the_eager_fit_and_stay_fresh(kind, cpu_card):
+    """The first call of a signature runs eagerly, the second captures, the
+    rest replay; each equals the eager fit on its own ``obs`` bit for bit,
+    and call k's results are unchanged after call k + 1."""
+    snapshot, moved = cpu_card
+    model, kwargs = _small_model(), _FIT_KINDS[kind]
+    batches = [_small_obs(k) for k in range(4)]
+    before = snapshot()
+    outs, kept, steps = [], [], []
+    for obs in batches:
+        outs.append(model.fit_vmp(obs, _FIT_SMALL["M"], _FIT_SMALL["n_iterations"], **kwargs))
+        kept.append(tree.tree_map(torch.clone, outs[-1]))
+        steps.append(moved(before))
+    assert [{k: n for k, n in s.items() if n} for s in steps] == [
+        {"eager": 1}, {"eager": 1, "captures": 1, "replays": 1},
+        {"eager": 1, "captures": 1, "replays": 2}, {"eager": 1, "captures": 1, "replays": 3}]
+    for out, want in zip(outs, kept):  # fresh: unchanged by the later calls
+        _same(out, want)
+    for obs, out in zip(batches, outs):
+        _same(out, _eager_fit(lambda: model.fit_vmp(obs, _FIT_SMALL["M"],
+                                                    _FIT_SMALL["n_iterations"], **kwargs)))
+
+
+_NEW_SIGNATURES = {
+    "shape": (dict(), dict(R=5)),
+    "n_iterations": (dict(n_iterations=3), dict(n_iterations=2)),
+    "trans_prior": (dict(trans_prior=1.0), dict(trans_prior=2.0)),
+    "emis_prior": (dict(emis_prior=1.0), dict(emis_prior=0.5)),
+    "method": (dict(pooled=True), dict(pooled=True, method="fused")),
+    "pooled": (dict(), dict(pooled=True)),
+    "init_state": (dict(), dict(init_state=_FIT_KINDS["scan init_state"]["init_state"])),
+}
+
+
+@pytest.mark.parametrize("field", list(_NEW_SIGNATURES))
+def test_a_new_fit_signature_captures_anew(field, cpu_card):
+    """A change in any field of the signature is a new signature: its first
+    call runs eagerly and its second captures, beside the first graph; each
+    replays its own fit."""
+    snapshot, moved = cpu_card
+    model = _small_model()
+    calls = []
+    for kwargs in _NEW_SIGNATURES[field]:
+        kwargs = dict(kwargs)
+        R = kwargs.pop("R", _FIT_SMALL["R"])
+        n = kwargs.pop("n_iterations", _FIT_SMALL["n_iterations"])
+        calls.append(lambda seed, kw=kwargs, R=R, n=n: model.fit_vmp(
+            _small_obs(seed, R=R), _FIT_SMALL["M"], n, **kw))
+    before = snapshot()
+    for call in calls:
+        call(0), call(1)
+    assert moved(before) == {"captures": 2, "replays": 2, "eager": 2}
+    assert len(model._fits.graphs) == 2
+    for call in reversed(calls):
+        _same(call(2), _eager_fit(lambda: call(2)))
+    assert moved(before) == {"captures": 2, "replays": 4, "eager": 2}
+
+
+def test_the_fit_cap_evicts_the_least_recently_used_graph(cpu_card):
+    snapshot, moved = cpu_card
+    model = _small_model()
+
+    def fit(n, seed=0):
+        return model.fit_vmp(_small_obs(seed), _FIT_SMALL["M"], n)
+
+    before = snapshot()
+    for n in (1, 2, 3):  # GRAPH_CAP is 2 here: n = 1 goes
+        fit(n), fit(n)
+    assert [key[0][0][2][1] for key in model._fits.graphs] == [2, 3]
+    fit(2)  # a replay, now the most recently used
+    fit(1), fit(1)  # first seen again, then captured, evicting n = 3
+    assert [key[0][0][2][1] for key in model._fits.graphs] == [2, 1]
+    assert moved(before) == {"captures": 4, "replays": 5, "eager": 4}
+    _same(fit(1, seed=3), _eager_fit(lambda: fit(1, seed=3)))
+
+
+@pytest.mark.parametrize("edit", ["reassigned", "edited in place"])
+def test_a_replay_reads_the_models_log_pi(edit, cpu_card):
+    """``log_pi`` is an input of the graph, copied in at each replay: a
+    buffer reassigned or edited after the capture is read by the next
+    replay, which gives the eager fit under it."""
+    snapshot, moved = cpu_card
+    model = _small_model()
+    obs = _small_obs(0)
+    model.fit_vmp(obs, _FIT_SMALL["M"], 2), model.fit_vmp(obs, _FIT_SMALL["M"], 2)
+    (captured,) = model._fits.graphs.values()
+    tilted = torch.log(torch.tensor([0.8, 0.2]))
+    if edit == "reassigned":
+        model.log_pi = tilted
+    else:
+        model.log_pi.copy_(tilted)
+    before = snapshot()
+    got = model.fit_vmp(obs, _FIT_SMALL["M"], 2)
+    assert moved(before) == {"captures": 0, "replays": 1, "eager": 0}
+    torch.testing.assert_close(captured.buffers[0], tilted, rtol=0, atol=0)
+    _same(got, _eager_fit(lambda: model.fit_vmp(obs, _FIT_SMALL["M"], 2)))
+    assert not torch.equal(got.posterior.log_gamma,
+                           _eager_fit(lambda: _small_model().fit_vmp(obs, _FIT_SMALL["M"], 2))
+                           .posterior.log_gamma)
+
+
+def test_a_failed_fit_capture_stays_eager(cpu_card):
+    """A capture that raises marks the signature eager for good; every call
+    gives the eager fit."""
+    snapshot, moved = cpu_card
+    model = _small_model()
+    _CpuFit.fail = True
+    before = snapshot()
+    got = [model.fit_vmp(_small_obs(k), _FIT_SMALL["M"], 2) for k in range(4)]
+    assert moved(before) == {"captures": 0, "replays": 0, "eager": 4}
+    assert len(model._fits.eager) == 1 and not model._fits.graphs and not model._fits.seen
+    _CpuFit.fail = False
+    _same(got[3], _eager_fit(lambda: model.fit_vmp(_small_obs(3), _FIT_SMALL["M"], 2)))
+    assert moved(before)["captures"] == 0
+
+
+@pytest.mark.parametrize("copy", ["deepcopy", "pickle", "state_dict"])
+def test_a_copy_of_the_model_keeps_no_graphs(copy, cpu_card):
+    """Graphs do not copy: a deep copy or a pickle of the model starts with
+    no captured fit, and the state dict holds ``log_pi`` alone."""
+    import copy as copy_module
+    import pickle
+
+    model = _small_model()
+    obs = _small_obs(0)
+    model.fit_vmp(obs, _FIT_SMALL["M"], 2), model.fit_vmp(obs, _FIT_SMALL["M"], 2)
+    assert len(model._fits.graphs) == 1
+    if copy == "state_dict":
+        assert list(model.state_dict()) == ["log_pi"]
+        return
+    other = (copy_module.deepcopy(model) if copy == "deepcopy"
+             else pickle.loads(pickle.dumps(model)))
+    assert not other._fits.graphs and not other._fits.seen and not other._fits.eager
+    assert len(model._fits.graphs) == 1
+    _same(other.fit_vmp(obs, _FIT_SMALL["M"], 2), model.fit_vmp(obs, _FIT_SMALL["M"], 2))
+
+
+@pytest.mark.parametrize("kind", ["scan per replica", "fused pooled"])
+def test_a_cpu_fit_engages_no_capture(kind):
+    """On the CPU no fit engages the capture: no ``model.hmm.graph``
+    counter moves, no signature is kept, and a fit made again gives the
+    same tensors bit for bit."""
+    model, kwargs = _small_model(), _FIT_KINDS[kind]
+    before = dict(hmm_model._GRAPH)
+    outs = [model.fit_vmp(_small_obs(k % 2), _FIT_SMALL["M"], 2, **kwargs) for k in range(3)]
+    assert dict(hmm_model._GRAPH) == before
+    assert not model._fits.graphs and not model._fits.seen and not model._fits.eager
+    _same(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("program", ["replays", "no counter", "no device record"])
+def test_hmm_replays_per_call_reads_the_replay_counter(program, monkeypatch):
+    """The benchmark's reader of ``model.hmm.graph.replays``: the increment
+    a traced call, averaged; nothing from a program without the counter (a
+    parent checkout) or from a run with no device record (the CPU)."""
+    from perfbench import devtrace, harness
+
+    spans = hmm_model.spans
+    records = [spans.CallRecord(i, "model.hmm.fit_vmp", 10 * i, 10 * i + 5, {"model": 5},
+                                {"model.hmm.graph.replays": n} if n else {})
+               for i, n in enumerate([1, 1, 0, 1])]
+    monkeypatch.setattr(spans, "calls", lambda: records)
+    if program == "no counter":
+        monkeypatch.setattr(spans, "counts", lambda: {"copy.h2d.calls": 0})
+    trace = devtrace.Trace(window_s=1.0, busy_s=0.0 if program == "no device record" else 0.5,
+                           calls=3)
+    run = harness.Run(cell=None, entry=None, setup_s=1.0, window=harness.Part(), trace=trace)
+    reader = harness.load_module(Path(harness.__file__).parent / "metrics"
+                                 / "hmm_replays_per_call.py")
+    assert reader.read(run) == (pytest.approx(2 / 3) if program == "replays" else None)
