@@ -50,8 +50,11 @@ single-device runs.  Phases, each printing JSON lines:
 10. ``hgf_main_path``: at 65,536 replicas x T=256 (the JAX bench's
     ``ladder.hgf``), ``HGF.filter`` by scan and by the kernel and
     ``ops.hgf_filter_fused`` against the float64 HGF; ``stream_filter`` and
-    ``StreamingSession`` over 8 chunks of 32 steps against the batch filter;
-    ``BinaryHGF.filter`` against the CPU; K4's launch count over this phase.
+    ``StreamingSession`` over 8 chunks of 32 steps by scan against the batch
+    filter, and by the kernel from each chunk's carried state (8 launches a
+    stream) against the plain version from the same states and the float64
+    HGF; ``BinaryHGF.filter`` against the CPU; K4's launch count over this
+    phase.
 11. ``hgf_times``: K4 (device and call time), its plain version, the scan
     path and a matched-traffic probe for three track sets, and the floor
     probe (one HGF step on every element at once), each beside its bound.
@@ -979,16 +982,21 @@ def phase_hgf_kernel(torch, kernels_hgf) -> float:
 
 
 def run_hgf_main_path(torch, models, ops, parallel, device, R: int, T: int,
-                      chunk: int = HGF_CHUNK, seed: int = 0) -> list:
+                      chunk: int = HGF_CHUNK, seed: int = 0, launches=None) -> list:
     """Drive the port's HGF path once at ``R`` replicas x ``T`` steps on
     ``device`` through its public entry points, and check every result.
 
     ``HGF.filter`` by scan and by the kernel and ``ops.hgf_filter_fused`` are
     held against the float64 numpy HGF on the first 64 replicas
     (HGF_F64_TOL); ``stream_filter`` and ``StreamingSession`` over chunks of
-    ``chunk`` steps from host memory against the batch scan on the same
-    device (1e-5; the same float32 operations); ``BinaryHGF.filter`` on
-    binary outcomes against the same on the CPU (BINARY_TOL).  Returns the
+    ``chunk`` steps from host memory, by scan, against the batch scan on the
+    same device (1e-5; the same float32 operations); the same two streams by
+    ``method="fused"`` (one K4 launch a chunk from the state the chunk before
+    left), each chunk against the plain version from the same carried state
+    (HGF_TOL) and the joined tracks against the float64 numpy HGF
+    (HGF_F64_TOL); ``BinaryHGF.filter`` on binary outcomes against the same
+    on the CPU (BINARY_TOL).  ``launches``, when given, reads K4's launch
+    count: each fused stream must launch it once a chunk.  Returns the
     checks.
     """
     u_np = hgf_data(R, T, "walk", seed)
@@ -1013,6 +1021,8 @@ def run_hgf_main_path(torch, models, ops, parallel, device, R: int, T: int,
     for c in chunks:
         session.push(c)
     session_final = session.flush()
+    fused = {name: run_hgf_fused_stream(torch, model, parallel, chunks, R, device, name, launches)
+             for name in ("stream_filter", "StreamingSession")}
     binary = models.BinaryHGF().filter(torch.from_numpy(outcomes).to(device))
     if device != "cpu":
         torch.cuda.synchronize()
@@ -1040,6 +1050,33 @@ def run_hgf_main_path(torch, models, ops, parallel, device, R: int, T: int,
         checks.append({"path": name, "against": "batch scan", "tol": 1e-5,
                        "chunks": len(chunks), "max_abs_err": errs})
 
+    for name, (states, results, n_launches) in fused.items():
+        if len(results) != len(chunks):
+            raise SmokeFailure(f"{name} fused: {len(results)} outputs for {len(chunks)} chunks")
+        errs = {}
+        for i, traj in enumerate(results):
+            c = u[:, i * chunk:(i + 1) * chunk].contiguous()
+            final = states[i + 1]
+            want_final, want_values = ops.hgf_filter_fused_reference(c, state=states[i])
+            for field, g, w in zip(ALL5, final, want_final):
+                errs[f"final {field}"] = max(errs.get(f"final {field}", 0.0), check_close(
+                    f"{name} fused chunk {i} final {field}", g, w, HGF_TOL))
+            for field, g, w in zip(ALL5, traj, want_values):
+                errs[f"track {field}"] = max(errs.get(f"track {field}", 0.0), check_close(
+                    f"{name} fused chunk {i} track {field}", g, w, HGF_TOL))
+        checks.append({"path": f"{name} fused", "against": "plain version, carried states",
+                       "tol": HGF_TOL, "chunks": len(chunks), "launches": n_launches,
+                       "max_abs_err": errs})
+        final = states[-1]
+        joined = [torch.cat([traj[k] for traj in results], dim=1) for k in range(5)]
+        errs = {field: check_close(f"{name} fused final {field}", g[:N_HGF], w, HGF_F64_TOL)
+                for field, g, w in zip(ALL5, final, want_finals)}
+        errs.update({f"track {field}": check_close(
+            f"{name} fused track {field}", g[:N_HGF], want_tracks[field], HGF_F64_TOL)
+            for field, g in zip(ALL5, joined)})
+        checks.append({"path": f"{name} fused", "against": "float64 numpy HGF",
+                       "tol": HGF_F64_TOL, "chunks": len(chunks), "max_abs_err": errs})
+
     cpu_final, cpu_traj = models.BinaryHGF().filter(torch.from_numpy(outcomes))
     errs = {field: check_close(f"BinaryHGF {field}", g, w, BINARY_TOL)
             for field, g, w in zip(cpu_final._fields, binary[0], cpu_final)}
@@ -1050,16 +1087,49 @@ def run_hgf_main_path(torch, models, ops, parallel, device, R: int, T: int,
     return checks
 
 
+def run_hgf_fused_stream(torch, model, parallel, chunks, R: int, device: str, how: str,
+                         launches=None):
+    """Stream ``chunks`` through ``HGF.filter(c, state=st, method="fused")``
+    by ``stream_filter`` or ``StreamingSession`` (``how``); returns the state
+    each chunk started from followed by the final state, each chunk's tracks
+    and K4's launches over the stream (``None`` when ``launches`` is not
+    given).  On the card the stream must launch K4 once a chunk."""
+    states = []
+
+    def chunk_step(state, c):
+        states.append(state)
+        return model.filter(c, state=state, method="fused")
+
+    before = launches() if launches else None
+    init = model.init_state((R,), device=device)
+    if how == "stream_filter":
+        final, results = parallel.stream_filter(chunk_step, chunks, init, device=device)
+    else:
+        session = parallel.StreamingSession(chunk_step, init, device=device)
+        for c in chunks:
+            session.push(c)
+        final, results = session.flush(), session.outputs
+    if device != "cpu":
+        torch.cuda.synchronize()
+    n = launches() - before if launches else None
+    if n is not None and device != "cpu" and n != len(chunks):
+        raise SmokeFailure(f"{how} fused launched hgf_filter {n} times for {len(chunks)} chunks")
+    return states + [final], results, n
+
+
 def phase_hgf_main_path(torch, models, ops, parallel, kernels) -> int:
     kernels.LAUNCHES["hgf_filter"] = 0
-    checks = run_hgf_main_path(torch, models, ops, parallel, "cuda", HGF_R, HGF_T)
+    checks = run_hgf_main_path(torch, models, ops, parallel, "cuda", HGF_R, HGF_T,
+                               launches=lambda: kernels.LAUNCHES["hgf_filter"])
     launches = kernels.LAUNCHES["hgf_filter"]
     for check in checks:
         emit(phase="hgf_main_path", R=HGF_R, T=HGF_T, **check)
     emit(phase="hgf_main_path", launches={"hgf_filter": launches})
-    # One launch by HGF.filter(method="fused"), one by the op.
-    if launches < 2:
-        raise SmokeFailure(f"the HGF main path launched hgf_filter {launches} times, not 2")
+    # One launch by HGF.filter(method="fused"), one by the op, one a chunk in
+    # each of the two fused streams.
+    want = 2 + 2 * -(-HGF_T // HGF_CHUNK)
+    if launches != want:
+        raise SmokeFailure(f"the HGF main path launched hgf_filter {launches} times, not {want}")
     return launches
 
 

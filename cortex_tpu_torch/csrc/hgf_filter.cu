@@ -3,7 +3,9 @@
 // Replaces the TPU kernel cortex_tpu/ops/pallas_hgf.py::hgf_filter_pallas: both of its
 // Pallas kernels, _hgf_sublane_kernel and the row-major _hgf_kernel, which differ only in
 // how the TPU's registers hold a step's operands.  Input u is (R, T) float32, row-major,
-// one replica per row; the state starts at mu = 0, pi = 1.  Outputs: the final (mu1, pi1,
+// one replica per row; the state starts at mu = 0, pi = 1, or at a given initial state
+// (mu1, pi1, mu2, pi2: four float32 arrays of R, read once), so that a stream of chunks
+// carries each replica's state from one launch to the next.  Outputs: the final (mu1, pi1,
 // mu2, pi2) as one (4, R) float32 array, and only the requested tracks among (mu1, pi1,
 // mu2, pi2, delta1), each (R, T) in float32 or bfloat16.  The guards are the model's:
 // log-volatility clipped to +-max_log_nu, pi2 floored at min_pi2, the mu2 step clipped to
@@ -64,6 +66,10 @@ struct Params {
 
 struct TrackPtrs {
   void* p[kTracks];  // nullptr: the track is not written
+};
+
+struct InitPtrs {
+  const float* p[4];  // mu1, pi1, mu2, pi2; all nullptr: the zero state
 };
 
 // Row pitch, in elements, of a track's shared tile: a chunk rounded up to an odd number of
@@ -134,8 +140,8 @@ __device__ __forceinline__ void load_chunk(float (&dst)[kChunk], const float* ro
 // vec_u: u is read 16 bytes at a time (T a multiple of 4, u 16-byte aligned).
 template <typename TrackT>
 __global__ void __launch_bounds__(kTile, 8) hgf_filter_kernel(
-    const float* __restrict__ u, float* __restrict__ finals, TrackPtrs tracks, long long R,
-    int T, Params p, bool vec_u) {
+    const float* __restrict__ u, float* __restrict__ finals, TrackPtrs tracks, InitPtrs init,
+    long long R, int T, Params p, bool vec_u) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int PT = pitch<TrackT>();
   const long long r0 = static_cast<long long>(blockIdx.x) * kTile;
@@ -159,6 +165,12 @@ __global__ void __launch_bounds__(kTile, 8) hgf_filter_kernel(
   float next[kChunk];
   load_chunk(next, row, 0, T, vec_u);
   float mu1 = 0.f, pi1 = 1.f, mu2 = 0.f, pi2 = 1.f;
+  if (init.p[0]) {
+    mu1 = __ldg(init.p[0] + r);
+    pi1 = __ldg(init.p[1] + r);
+    mu2 = __ldg(init.p[2] + r);
+    pi2 = __ldg(init.p[3] + r);
+  }
   for (int t0 = 0; t0 < T; t0 += kChunk) {
     float x[kChunk];
 #pragma unroll
@@ -200,8 +212,8 @@ __global__ void __launch_bounds__(kTile, 8) hgf_filter_kernel(
 }
 
 template <typename TrackT>
-int launch(const float* u, float* finals, const TrackPtrs& tracks, long long R, int T,
-           const Params& p, cudaStream_t stream) {
+int launch(const float* u, float* finals, const TrackPtrs& tracks, const InitPtrs& init,
+           long long R, int T, const Params& p, cudaStream_t stream) {
   int n_tracks = 0;
   for (int k = 0; k < kTracks; ++k) n_tracks += tracks.p[k] != nullptr;
   const bool vec_u = T % 4 == 0 && (reinterpret_cast<uintptr_t>(u) & 15) == 0;
@@ -209,7 +221,8 @@ int launch(const float* u, float* finals, const TrackPtrs& tracks, long long R, 
   // eight blocks (all 65,536 replicas of the main path resident at once) fit an SM.
   const int smem = n_tracks * tile_bytes<TrackT>();
   const unsigned grid = static_cast<unsigned>((R + kTile - 1) / kTile);
-  hgf_filter_kernel<TrackT><<<grid, kTile, smem, stream>>>(u, finals, tracks, R, T, p, vec_u);
+  hgf_filter_kernel<TrackT><<<grid, kTile, smem, stream>>>(u, finals, tracks, init, R, T, p,
+                                                            vec_u);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -218,18 +231,21 @@ int launch(const float* u, float* finals, const TrackPtrs& tracks, long long R, 
 extern "C" {
 
 // finals: (4, R) float32.  mu1 .. delta1: (R, T) outputs of the track type, or null for a
-// track not written.  bf16 selects bfloat16 tracks (else float32).  Returns the
+// track not written.  mu1_0 .. pi2_0: the initial state, four float32 arrays of R, all set
+// or all null (the zero state).  bf16 selects bfloat16 tracks (else float32).  Returns the
 // cudaError_t of the launch (0 on success).
 int hgf_filter_f32(const float* u, float* finals, void* mu1, void* pi1, void* mu2, void* pi2,
-                   void* delta1, long long R, int T, int bf16, float kappa, float omega,
+                   void* delta1, const float* mu1_0, const float* pi1_0, const float* mu2_0,
+                   const float* pi2_0, long long R, int T, int bf16, float kappa, float omega,
                    float theta, float pi_u, float max_log_nu, float min_pi2,
                    float max_mu2_step, float half_kappa_sq, float half_kappa, void* stream) {
   const TrackPtrs tracks{{mu1, pi1, mu2, pi2, delta1}};
+  const InitPtrs init{{mu1_0, pi1_0, mu2_0, pi2_0}};
   const Params p{kappa,        omega,         theta,     pi_u,      max_log_nu,
                  min_pi2,      max_mu2_step,  half_kappa_sq, half_kappa};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(u, finals, tracks, R, T, p, s)
-              : launch<float>(u, finals, tracks, R, T, p, s);
+  return bf16 ? launch<__nv_bfloat16>(u, finals, tracks, init, R, T, p, s)
+              : launch<float>(u, finals, tracks, init, R, T, p, s);
 }
 
 }  // extern "C"

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels_hgf import ALL_TRACKS, PARAMS, hgf_filter_fused, hgf_update
+from ..utils import spans
 from ..utils.tree import as_tensors
 
 __all__ = ["HGF", "HGFState", "HGFTrajectory"]
@@ -161,25 +162,33 @@ class HGF(nn.Module):
         ``method="scan"``: a loop over T (any batch shape, any initial state,
         tensor parameters).  ``method="fused"`` (JAX calls it ``"pallas"``):
         the CUDA kernel :func:`~cortex_tpu_torch.ops.hgf_filter_fused`, the
-        whole trajectory of every replica in one launch; it needs ``u`` of
-        shape ``(R, T)``, the default initial state and parameters that need
-        no gradient.
+        whole trajectory of every replica in one launch, from ``state`` (each
+        entry ``(R,)`` float32 on ``u``'s device) or the zero state; it needs
+        ``u`` of shape ``(R, T)`` and parameters that need no gradient.  A
+        stream of chunks carries the state from one launch to the next::
+
+            stream_filter(lambda st, c: hgf.filter(c, state=st, method="fused"),
+                          chunks, hgf.init_state((R,)))
         """
+        with spans.span("model.hgf.filter"):
+            return self._filter(u, state, method, tracks)
+
+    def _filter(self, u, state, method, tracks):
         if method not in _METHODS:
             raise ValueError(f"Unknown method: {method!r} (expected one of {_METHODS})")
         tracks = ALL_TRACKS if tracks is None else tuple(tracks)
-        u, state = _inputs(u, state)
+        with spans.span("boundary.inputs"):
+            u, state = _inputs(u, state)
 
         def to_traj(values):
             by_name = dict(zip(tracks, values))
             return HGFTrajectory(*(by_name.get(n) for n in ALL_TRACKS))
 
         if method == "fused":
-            if state is not None or u.dim() != 2:
+            if u.dim() != 2:
                 raise ValueError(
-                    "method='fused' requires u of shape (R, T) and the default initial state"
-                )
-            finals, values = hgf_filter_fused(u, **self.params(), tracks=tracks)
+                    f"method='fused' requires u of shape (R, T), got {tuple(u.shape)}")
+            finals, values = hgf_filter_fused(u, **self.params(), tracks=tracks, state=state)
             return HGFState(*finals), to_traj(values)
 
         uT = u.movedim(-1, 0)

@@ -4,6 +4,9 @@
 ``cortex_tpu.ops.pallas_hgf.hgf_filter_pallas``: the whole T-step filtering
 recursion of every replica in one kernel, ``csrc/hgf_filter.cu``, which
 reads ``u`` once and writes the final state plus only the requested tracks.
+It starts from the zero state or from a given one (four float32 tensors of
+``R``, read once), so a stream of chunks carries each replica's state from
+one launch to the next with no copy: one chunk's finals feed the next.
 On a CUDA tensor it launches the kernel (built at first use; a failed build
 or launch raises) and counts the launch in ``kernels.LAUNCHES["hgf_filter"]``;
 on a CPU tensor it runs the plain version, :func:`hgf_filter_fused_reference`;
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +45,7 @@ __all__ = [
 ]
 
 ALL_TRACKS = ("mu1", "pi1", "mu2", "pi2", "delta1")
+STATE = ALL_TRACKS[:4]
 PARAMS = ("kappa", "omega", "theta", "pi_u", "max_log_nu", "min_pi2", "max_mu2_step")
 TRACK_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -66,6 +70,31 @@ def hgf_update(mu1, pi1, mu2, pi2, u, kappa, omega, theta, pi_u, max_log_nu, min
         0.5 * kappa * (w1 / pi2_new) * delta1, -max_mu2_step, max_mu2_step
     )
     return mu1_new, pi1_new, mu2 + mu2_step, pi2_new, delta1
+
+
+def _check_state(u: torch.Tensor, state) -> Optional[Tuple[torch.Tensor, ...]]:
+    """Check an initial state: ``None``, or four tensors ``(mu1, pi1, mu2,
+    pi2)``, each ``(R,)`` float32 on ``u``'s device and needing no grad."""
+    if state is None:
+        return None
+    state = tuple(state)
+    if len(state) != 4:
+        raise ValueError(f"initial state must hold (mu1, pi1, mu2, pi2), got {len(state)} entries")
+    R = u.shape[0]
+    for name, x in zip(STATE, state):
+        if not isinstance(x, torch.Tensor):
+            raise ValueError(f"initial state {name} must be a tensor, got {type(x).__name__}")
+        if tuple(x.shape) != (R,):
+            raise ValueError(f"initial state {name} must be of shape ({R},), got {tuple(x.shape)}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"initial state {name} must be float32, got {x.dtype}")
+        if x.device != u.device:
+            raise ValueError(f"initial state {name} must be on {u.device}, got {x.device}")
+        if x.requires_grad:
+            raise ValueError(
+                f"initial state {name} requires grad; the kernel has no backward: "
+                "use method='scan'")
+    return state
 
 
 def _check(u: torch.Tensor, tracks: Sequence[str], track_dtype, params: dict):
@@ -104,15 +133,23 @@ def hgf_filter_fused_reference(
     max_mu2_step: float = 5.0,
     tracks: Sequence[str] = ALL_TRACKS,
     track_dtype=None,
+    state=None,
 ):
     """Plain PyTorch version of the kernel: :func:`hgf_update` in a loop over
-    ``T`` from the zero state (mu = 0, pi = 1), all replicas at once.  Same
-    arguments and results as :func:`hgf_filter_fused`."""
+    ``T`` from ``state`` or the zero state (mu = 0, pi = 1), all replicas at
+    once.  Same arguments and results as :func:`hgf_filter_fused`."""
     params = dict(zip(PARAMS, (kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step)))
     tracks, track_dtype, params = _check(u, tracks, track_dtype, params)
+    return _filter_plain(u, tracks, track_dtype, params, _check_state(u, state))
+
+
+def _filter_plain(u, tracks, track_dtype, params, state):
+    """:func:`hgf_filter_fused_reference` on checked operands."""
     uT = u.t()
-    zero = torch.zeros_like(uT[0])
-    mu1, pi1, mu2, pi2 = zero, torch.ones_like(zero), zero, torch.ones_like(zero)
+    if state is None:
+        zero = torch.zeros_like(uT[0])
+        state = zero, torch.ones_like(zero), zero, torch.ones_like(zero)
+    mu1, pi1, mu2, pi2 = state
     outs = {name: torch.empty_like(uT) for name in tracks}
     for t in range(uT.shape[0]):
         mu1, pi1, mu2, pi2, delta1 = hgf_update(mu1, pi1, mu2, pi2, uT[t], **params)
@@ -123,21 +160,33 @@ def hgf_filter_fused_reference(
     return (mu1, pi1, mu2, pi2), tuple(values[name] for name in tracks)
 
 
+def _state_or_none(mu1_0, pi1_0, mu2_0, pi2_0):
+    """The operator's four optional state tensors as one state, or ``None``
+    when none is given; some but not all raises."""
+    state = (mu1_0, pi1_0, mu2_0, pi2_0)
+    given = sum(x is not None for x in state)
+    if given not in (0, 4):
+        raise ValueError(f"the initial state needs all four of {STATE} or none, got {given}")
+    return state if given else None
+
+
 def _hgf_filter_cpu(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,
-                    tracks, bf16):
-    finals, values = hgf_filter_fused_reference(
-        u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,
-        tracks=[ALL_TRACKS[i] for i in tracks],
-        track_dtype=torch.bfloat16 if bf16 else torch.float32)
+                    tracks, bf16, mu1_0=None, pi1_0=None, mu2_0=None, pi2_0=None):
+    """The plain version on ``u`` and the state (checked by the caller)."""
+    params = dict(zip(PARAMS, (kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step)))
+    finals, values = _filter_plain(
+        u, [ALL_TRACKS[i] for i in tracks], torch.bfloat16 if bf16 else torch.float32,
+        params, _state_or_none(mu1_0, pi1_0, mu2_0, pi2_0))
     return torch.stack(finals), list(values)
 
 
 @functools.cache
 def _signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with K4's C signature declared: u, finals, five track
-    pointers, R, T, bf16, nine float constants, stream."""
+    pointers, four initial-state pointers, R, T, bf16, nine float constants,
+    stream."""
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.hgf_filter_f32.argtypes = [ptr] * 7 + [i64, i32, i32] + [f32] * 9 + [ptr]
+    lib.hgf_filter_f32.argtypes = [ptr] * 11 + [i64, i32, i32] + [f32] * 9 + [ptr]
     lib.hgf_filter_f32.restype = i32
     return lib
 
@@ -149,11 +198,15 @@ def _library() -> ctypes.CDLL:
 
 
 def _hgf_filter_cuda(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step,
-                     tracks, bf16):
-    """Launch ``csrc/hgf_filter.cu`` on ``u`` (checked by the caller)."""
+                     tracks, bf16, mu1_0=None, pi1_0=None, mu2_0=None, pi2_0=None):
+    """Launch ``csrc/hgf_filter.cu`` on ``u`` and the state (checked by the
+    caller)."""
     with spans.span("launch.hgf_filter"):
         if not u.is_contiguous():
             raise ValueError("u must be contiguous")
+        state = _state_or_none(mu1_0, pi1_0, mu2_0, pi2_0)
+        if state is not None and not all(x.is_contiguous() for x in state):
+            raise ValueError("the initial state's tensors must be contiguous")
         R, T = u.shape
         if R >= 2**31 or T >= 2**31:
             raise ValueError(f"u of shape {tuple(u.shape)} is too large for the kernel")
@@ -164,6 +217,8 @@ def _hgf_filter_cuda(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_
                 for i in tracks}
         # Output pointers in ALL_TRACKS order; 0 marks a track not written.
         pointers = [outs[name].data_ptr() if name in outs else 0 for name in ALL_TRACKS]
+        # The initial state's pointers; all 0 for the zero state.
+        pointers += [x.data_ptr() for x in state] if state is not None else [0] * 4
         with torch.cuda.device(u.device):
             stream = torch.cuda.current_stream(u.device).cuda_stream
             err = lib.hgf_filter_f32(
@@ -182,7 +237,8 @@ def _hgf_filter_cuda(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_
 
 OPS.define(
     "hgf_filter(Tensor u, float kappa, float omega, float theta, float pi_u, float max_log_nu, "
-    "float min_pi2, float max_mu2_step, int[] tracks, bool bf16) -> (Tensor, Tensor[])")
+    "float min_pi2, float max_mu2_step, int[] tracks, bool bf16, Tensor? mu1_0=None, "
+    "Tensor? pi1_0=None, Tensor? mu2_0=None, Tensor? pi2_0=None) -> (Tensor, Tensor[])")
 OPS.impl("hgf_filter", _hgf_filter_cpu, "CPU")
 OPS.impl("hgf_filter", _hgf_filter_cuda, "CUDA")
 _HGF_FILTER = op("hgf_filter")
@@ -193,11 +249,14 @@ _HGF_FILTER = op("hgf_filter")
 OPS_PER_STEP = 35 + 8 * 6
 
 
-def _cost(u, *params_tracks_bf16):
-    """u read, the finals and the tracks written; OPS_PER_STEP a replica-step."""
-    tracks, bf16 = params_tracks_bf16[-2:]
+def _cost(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step, tracks, bf16,
+          mu1_0=None, pi1_0=None, mu2_0=None, pi2_0=None):
+    """u and a given initial state read, the finals and the tracks written;
+    OPS_PER_STEP a replica-step."""
     R, T = u.shape
     nbytes = 4.0 * R * T + 16.0 * R + len(tracks) * (2 if bf16 else 4) * R * T
+    if mu1_0 is not None:
+        nbytes += 16.0 * R
     return float(OPS_PER_STEP * R * T), nbytes
 
 
@@ -206,7 +265,7 @@ COSTS["hgf_filter"] = _cost
 
 @torch.library.register_fake(f"{NAMESPACE}::hgf_filter", lib=OPS)
 def _hgf_filter_fake(u, kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step, tracks,
-                     bf16):
+                     bf16, mu1_0=None, pi1_0=None, mu2_0=None, pi2_0=None):
     track_dtype = torch.bfloat16 if bf16 else torch.float32
     return u.new_empty((4, u.shape[0])), [u.new_empty(u.shape, dtype=track_dtype)
                                           for _ in tracks]
@@ -223,8 +282,10 @@ def hgf_filter_fused(
     max_mu2_step: float = 5.0,
     tracks: Sequence[str] = ALL_TRACKS,
     track_dtype=None,
+    state=None,
 ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
-    """Filter ``u`` of shape ``(R, T)``, float32, from the zero state.
+    """Filter ``u`` of shape ``(R, T)``, float32, from ``state`` or, when
+    it is ``None``, the zero state (mu = 0, pi = 1).
 
     Returns ``(finals, track_values)``: the final ``(mu1, pi1, mu2, pi2)``,
     each ``(R,)`` float32, and one ``(R, T)`` tensor per name in ``tracks``
@@ -233,15 +294,20 @@ def hgf_filter_fused(
     float32).  Filtering-only callers pass ``tracks=()``: the kernel's output
     traffic grows with the number of tracks.  The parameters are plain
     numbers; a tensor that requires grad raises, since the kernel has no
-    backward (use ``HGF.filter(method="scan")``).  A ``u`` that is not a
-    tensor becomes float32 on the card.
+    backward (use ``HGF.filter(method="scan")``).  ``state`` is ``(mu1,
+    pi1, mu2, pi2)`` (an :class:`~cortex_tpu_torch.models.HGFState` or any
+    four tensors), each ``(R,)`` float32 on ``u``'s device and needing no
+    grad; anything else raises ``ValueError``.  The finals of one call are
+    views of one ``(4, R)`` tensor, which the next call takes as its state
+    as they are.  A ``u`` that is not a tensor becomes float32 on the card.
     """
     u, = as_tensors(u)
     params = dict(zip(PARAMS, (kappa, omega, theta, pi_u, max_log_nu, min_pi2, max_mu2_step)))
     tracks, track_dtype, p = _check(u, tracks, track_dtype, params)
+    state = _check_state(u, state)
     if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hgf_filter_fused runs on cpu or cuda, not {u.device}")
     finals, values = _HGF_FILTER(u, *(p[name] for name in PARAMS),
                                  [ALL_TRACKS.index(name) for name in tracks],
-                                 track_dtype == torch.bfloat16)
+                                 track_dtype == torch.bfloat16, *(state or ()))
     return tuple(finals.unbind(0)), tuple(values)

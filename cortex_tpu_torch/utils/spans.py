@@ -3,7 +3,12 @@
 A span is a ``with`` block named after the layer it times: the name starts
 with the layer and a dot (``model.``, ``boundary.``, ``compiled.``,
 ``rules.``, ``ops.``, ``launch.``, ``setup.``, ``parallel.``,
-``collective.``).  ``parallel.`` spans are the roots of the parallel layer's
+``collective.``, ``stream.``).  ``stream.`` spans are the streaming layer's
+(``parallel/streaming.py``): ``stream.filter``, the root of a stream
+(``stream_filter``, ``StreamingSession.push`` and ``.flush``), around the
+model's calls on each chunk; ``stream.stage``, a chunk's conversion, pin
+check and copy enqueued on the side stream; ``stream.wait``, the compute
+stream's wait for that copy.  ``parallel.`` spans are the roots of the parallel layer's
 calls (``parallel.time_sharded``, ``parallel.mv_time_sharded``): the rank's
 own work on its block; ``collective.`` spans are the exchanges between
 ranks (``collective.all_gather``, ``.all_reduce``, ``.send_recv``, one an
@@ -38,7 +43,8 @@ the port's uploads to the card, :func:`h2d`), ``compiled.graph`` (the
 executor's ``captures``, ``replays`` and ``eager`` sweeps on the card),
 ``model.hmm.graph`` (the same of ``HMM.fit_vmp``'s fits on the card),
 ``collective`` (``calls`` and ``bytes`` sent by this rank, of every mesh's
-exchanges) and ``spans``
+exchanges), ``stream`` (``chunks`` and ``bytes`` staged by the streaming
+layer, whose uploads count in ``copy.h2d`` too) and ``spans``
 (``dropped``).
 """
 

@@ -14,7 +14,9 @@ The HMM kernel sums over states in another order than its plain version and
 sums the pairwise counts inside its backward pass: gamma atol 1e-5 and
 log-evidence rtol 1e-5 (the bars of tests/test_pallas_kernels.py), xi_sum
 rtol = atol = 1e-4.  The HGF kernel rounds each operation as its plain
-version does: 1e-5 (tests/test_hgf.py's bar), bf16 tracks within one ulp.
+version does: 1e-5 (tests/test_hgf.py's bar), bf16 tracks within one ulp;
+from a given state too, and a stream of launches, each from the state the
+one before left in float32, equals one launch over the whole series.
 The time-sharded smoother's CUDA passes and their plain version in float64,
 both on the card, differ by float32 rounding: 1e-4 (the K1 bar).
 The generic compiled path runs plain torch operations on the card; the BP
@@ -38,7 +40,8 @@ import torch
 from cortex_tpu_torch import models, ops, parallel
 from cortex_tpu_torch.models import HGF, HMM, LGSSM, HMMVMPState
 from cortex_tpu_torch.ops import kernels, kernels_hgf, kernels_hmm
-from cortex_tpu_torch.parallel import StreamingSession, stream_filter
+from cortex_tpu_torch.parallel import StreamingSession, stream_filter, streaming
+from cortex_tpu_torch.utils import spans
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -345,15 +348,95 @@ def test_streaming_copies_on_a_side_stream_match_the_batch_filter(cuda):
     assert len(outs) == len(session.outputs) == 6
 
 
+def _hgf_state(seed, R, device):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(device) for x in (
+        rng.normal(size=R), 0.5 + 3 * rng.random(R), rng.normal(size=R), 0.5 + 3 * rng.random(R)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32-tracks", "bf16-tracks"])
+def test_hgf_kernel_from_a_state_matches_plain_version(cuda, bf16):
+    """K4 from a given state against its plain version from the same state,
+    at the bars of the zero-state cases above."""
+    u = _hgf_u(7, (301, 70), cuda)
+    state = _hgf_state(8, 301, cuda)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    launches = kernels.LAUNCHES["hgf_filter"]
+    got = kernels_hgf.hgf_filter_fused(u, **HGF_NONDEFAULT, state=state, track_dtype=dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hgf_filter"] == launches + 1
+    want = kernels_hgf.hgf_filter_fused_reference(u, **HGF_NONDEFAULT, state=state,
+                                                  track_dtype=dtype)
+    zero_state = kernels_hgf.hgf_filter_fused(u, **HGF_NONDEFAULT, track_dtype=dtype)
+    for g, w in zip(got[0], want[0]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got[1], want[1]):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g, w, rtol=2**-7 if bf16 else 1e-5, atol=1e-5)
+    assert not torch.equal(got[1][0], zero_state[1][0])  # the state was read
+
+
+@pytest.mark.cuda
+def test_hgf_stream_of_kernel_launches_equals_one_launch(cuda):
+    """``stream_filter`` over 8 pinned chunks of 32 steps with
+    ``method="fused"``: one K4 a chunk and nothing else of the HGF's, each
+    from the float32 state the one before wrote, equal bit for bit to one
+    launch over the 256 steps (the state is float32 in registers and in
+    memory alike)."""
+    R, T, chunk = 4096, 256, 32
+    u = _hgf_u(9, (R, T), "cpu")
+    host = u.reshape(R, T // chunk, chunk).transpose(0, 1).contiguous().pin_memory()
+    model = HGF()
+    launches = kernels.LAUNCHES["hgf_filter"]
+    final, outs = stream_filter(lambda st, c: model.filter(c, state=st, method="fused"),
+                                host.unbind(0), model.init_state((R,)))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hgf_filter"] == launches + T // chunk
+    whole_final, whole = model.filter(u.to(cuda), method="fused")
+    for g, w in zip(final, whole_final):
+        assert torch.equal(g, w)
+    for field in whole._fields:
+        joined = torch.cat([getattr(o, field) for o in outs], dim=1)
+        assert torch.equal(joined, getattr(whole, field)), field
+
+
+@pytest.mark.cuda
+def test_a_pinned_chunk_view_is_staged_with_no_host_copy(cuda, monkeypatch):
+    """A chunk that is a view of pinned memory is copied to the card as it
+    is (no ``pin_memory`` copy on the host), counted in ``copy.h2d`` and in
+    the ``stream`` counters."""
+    host = torch.randn(8, 64, 32).pin_memory()
+    chunk = host[3]
+    assert chunk.is_pinned()
+
+    def host_copy(self, *args, **kwargs):
+        raise AssertionError("a pinned chunk was copied on the host")
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", host_copy)
+    before = spans.counts()
+    staged, done = streaming._Stager(cuda).put(chunk)
+    assert done is not None and staged.is_cuda
+    torch.cuda.current_stream().wait_event(done)
+    assert torch.equal(staged.cpu(), chunk)
+    after = spans.counts()
+    assert after["copy.h2d.calls"] == before["copy.h2d.calls"] + 1
+    assert after["copy.h2d.bytes"] == before["copy.h2d.bytes"] + 64 * 32 * 4
+    assert after["stream.chunks"] == before["stream.chunks"] + 1
+
+
 @pytest.mark.cuda
 def test_chip_smoke_hgf_main_path_on_card(cuda):
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     launches = kernels.LAUNCHES["hgf_filter"]
-    checks = smoke.run_hgf_main_path(torch, models, ops, parallel, "cuda", R=300, T=64, chunk=16)
-    assert kernels.LAUNCHES["hgf_filter"] == launches + 2
+    checks = smoke.run_hgf_main_path(torch, models, ops, parallel, "cuda", R=300, T=64, chunk=16,
+                                     launches=lambda: kernels.LAUNCHES["hgf_filter"])
+    # HGF.filter(method="fused"), the op, and one a chunk in each fused stream.
+    assert kernels.LAUNCHES["hgf_filter"] == launches + 2 + 2 * 4
     assert any(c["path"] == "HGF.filter fused" for c in checks)
+    assert [c["launches"] for c in checks if c.get("launches") is not None] == [4, 4]
 
 
 def _chip_smoke():

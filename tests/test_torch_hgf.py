@@ -163,7 +163,7 @@ def test_parameters_may_be_module_parameters():
     "u, kwargs, match",
     [
         (torch.zeros(2, 3, 4), {}, "requires u of shape"),
-        (torch.zeros(3, 4), {"state": HGF().init_state((3,), device="cpu")}, "initial state"),
+        (torch.zeros(3, 4), {"state": HGF().init_state((2,), device="cpu")}, "initial state"),
         (torch.zeros(3, 4), {"tracks": ("mu1", "bogus")}, "unknown tracks"),
     ],
 )
@@ -268,7 +268,13 @@ def test_chip_smoke_hgf_main_path_rehearses_on_cpu():
     assert kernels.LAUNCHES == before  # the CPU takes the plain version
     assert {c["path"] for c in checks} == {
         "HGF.filter scan", "HGF.filter fused", "hgf_filter_fused", "stream_filter",
-        "StreamingSession", "BinaryHGF.filter"}
+        "StreamingSession", "stream_filter fused", "StreamingSession fused", "BinaryHGF.filter"}
+    # Each fused stream is held to the plain version chunk by chunk and to the
+    # float64 HGF over the joined tracks.
+    fused = [c for c in checks if c["path"].endswith(" fused") and "chunks" in c]
+    assert sorted(c["against"] for c in fused) == sorted(2 * [
+        "float64 numpy HGF", "plain version, carried states"])
+    assert all(c["chunks"] == 4 for c in fused)
     # The float64 reference against the JAX model in float32.
     u = _series(14, GUARDS, shape=(6, 30))
     finals, tracks, fires = smoke.numpy_hgf(u, **GUARDS)
